@@ -1,0 +1,317 @@
+"""The DWC-GAN generator in PyTorch (counterpart of
+`dwcgan_tpu/models/generator.py`).
+
+Inside, activations are NCHW tensors in channels_last memory (NHWC bytes),
+so cuDNN's convolutions stay on their NHWC path and the norm kernels read
+channel-contiguous rows.  The public methods `encode`, `encode_txt` and
+`decode` take and return NHWC, like the JAX `Generator`.  Styles are
+[N, num_cls, c_dim]; `decode` and `encode_txt` take the flattened
+attribute-major [N, num_cls * c_dim] form.
+
+Parameters are fp32 and named as in the reference torch model
+(`enc_content.model.{i}.conv`, `dec.model.0.model.{b}.model.{0,1}.conv`,
+`enc_txt.lstm.weight_ih_l0`, `enc_style.fcs.{i}`, ...), so
+`dwcgan_tpu/interop/torch_import.py` reads a port `state_dict()` directly.
+The convolutions and matmuls run in the compute dtype; the text encoder
+(embedding, bi-LSTM, heads) runs in fp32 whatever that dtype is.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dwcgan_tpu_torch.config import Config, GenConfig
+from dwcgan_tpu_torch.device import resolve_device
+from dwcgan_tpu_torch.ops.blocks import (AdaINResBlocks, Conv2dBlock, MLP,
+                                         ResBlocks, channels_last, pad2d)
+from dwcgan_tpu_torch.ops.lstm import MaskedBiLSTM
+from dwcgan_tpu_torch.ops.norms import check_stats
+from dwcgan_tpu_torch.ops.resize import upsample2x
+
+
+def _fused_linear(x, linears):
+    """The per-attribute Linear heads on one input, as one matmul."""
+    w = torch.cat([m.weight for m in linears]).to(x.dtype)
+    b = torch.cat([m.bias for m in linears]).to(x.dtype)
+    return F.linear(x, w, b)
+
+
+class ContentEncoder(nn.Module):
+    """7x7 stem + capped stride-2 downsamples + IN resblocks
+    (reference `ContentEncoder`, networks.py:428-446; dim cap 256)."""
+
+    def __init__(self, input_dim: int, dim: int, n_downsample: int,
+                 n_res: int, activ: str, pad_type: str):
+        super().__init__()
+        layers = [Conv2dBlock(input_dim, dim, 7, 1, 3, "in", activ, pad_type)]
+        d = dim
+        for _ in range(n_downsample):
+            nd = min(d * 2, 256)
+            layers.append(Conv2dBlock(d, nd, 4, 2, 1, "in", activ, pad_type))
+            d = nd
+        layers.append(ResBlocks(n_res, d, "in", activ, pad_type))
+        self.model = nn.ModuleList(layers)
+        self.output_dim = d
+
+    def forward(self, x):
+        for m in self.model:
+            x = m(x)
+        return x
+
+
+class StyleEncoder(nn.Module):
+    """Conv stack + GAP + mapping MLP + per-attribute Gaussian heads
+    (reference StyleEncoder v2, networks_v2.py:98-141).  -> (mu, logvar),
+    each [N, num_cls, c_dim]."""
+
+    def __init__(self, input_dim: int, dim: int, n_downsample: int,
+                 c_dim: int, num_cls: int, activ: str, pad_type: str,
+                 use_map: bool):
+        super().__init__()
+        kw = dict(norm="none", activ=activ, pad_type=pad_type)
+        layers = [Conv2dBlock(input_dim, dim, 7, 1, 3, **kw)]
+        d = dim
+        for _ in range(2):
+            layers.append(Conv2dBlock(d, 2 * d, 4, 2, 1, **kw))
+            d *= 2
+        for _ in range(n_downsample - 2):
+            layers.append(Conv2dBlock(d, d, 4, 2, 1, **kw))
+        self.model = nn.ModuleList(layers)
+        self.use_map = use_map
+        if use_map:
+            self.mapping = nn.Sequential(nn.Linear(d, d), nn.ReLU(),
+                                         nn.Dropout(0.1), nn.Linear(d, d),
+                                         nn.ReLU())
+        self.fcs = nn.ModuleList([nn.Linear(d, c_dim) for _ in range(num_cls)])
+        self.fcvars = nn.ModuleList([nn.Linear(d, c_dim)
+                                     for _ in range(num_cls)])
+        self.shape = (num_cls, c_dim)
+
+    def forward(self, x):
+        for m in self.model:
+            x = m(x)
+        feats = x.mean(dim=(2, 3))   # global average pool -> [N, d]
+        if self.use_map:
+            m0, m3 = self.mapping[0], self.mapping[3]
+            feats = F.relu(F.linear(feats, m0.weight.to(feats.dtype),
+                                    m0.bias.to(feats.dtype)))
+            feats = F.dropout(feats, 0.1, self.training)
+            feats = F.relu(F.linear(feats, m3.weight.to(feats.dtype),
+                                    m3.bias.to(feats.dtype)))
+        shape = (x.shape[0],) + self.shape
+        return (_fused_linear(feats, self.fcs).reshape(shape),
+                _fused_linear(feats, self.fcvars).reshape(shape))
+
+
+class TxtEncoder(nn.Module):
+    """(current style, command tokens) -> target style distribution
+    (reference TxtEncoder v2, networks_v2.py:171-254).
+
+    Per timestep the input is the word embedding ++ the current style; a
+    bi-LSTM; the heads read every layer's and direction's final (h, c).
+    The head input is built per sample in the reference's block order
+    [h_l0(f, b), c_l0(f, b), h_l1(f, b), c_l1(f, b), ...]; the reference's
+    batch-interleaving reshape (networks_v2.py:249, harmless at its batch of
+    1) is not copied.  The JAX model orders the same blocks [h all, c all]
+    and permutes the head rows when it imports reference weights.
+    """
+
+    def __init__(self, vocab_size: int, embed_dim: int, hidden_size: int,
+                 c_dim: int, num_cls: int, num_layers: int,
+                 dropout_in: float, dropout_out: float):
+        super().__init__()
+        self.embed_tokens = nn.Embedding(vocab_size, embed_dim)
+        self.lstm = MaskedBiLSTM(embed_dim + num_cls * c_dim, hidden_size,
+                                 num_layers, dropout_out)
+        feat = num_layers * 4 * hidden_size
+        self.fcs = nn.ModuleList([nn.Linear(feat, c_dim)
+                                  for _ in range(num_cls)])
+        self.fcvars = nn.ModuleList([nn.Linear(feat, c_dim)
+                                     for _ in range(num_cls)])
+        self.dropout_in = dropout_in
+        self.shape = (num_cls, c_dim)
+
+    def forward(self, style_flat, tokens, lengths):
+        """style_flat: [N, num_cls*c_dim]; tokens: [N, T] int; lengths: [N]."""
+        x = F.dropout(self.embed_tokens(tokens.long()), self.dropout_in,
+                      self.training)
+        style_b = style_flat.float()[:, None, :].expand(-1, x.shape[1], -1)
+        _, h, c = self.lstm(torch.cat([x, style_b], dim=-1), lengths)
+        feats = torch.cat([torch.cat([h[l, 0], h[l, 1], c[l, 0], c[l, 1]], -1)
+                           for l in range(h.shape[0])], dim=-1)
+        shape = (feats.shape[0],) + self.shape
+        return (_fused_linear(feats, self.fcs).reshape(shape),
+                _fused_linear(feats, self.fcvars).reshape(shape))
+
+
+class Upsample2x(nn.Module):
+    """Bilinear 2x; a module so the decoder's indices match the reference."""
+
+    def forward(self, x):
+        return upsample2x(x)
+
+
+class Decoder(nn.Module):
+    """AdaIN resblocks -> bilinear-upsample conv stages -> image + attention
+    heads (reference Decoder, networks_v2.py:144-169).  With attention on,
+    the 3-channel image head and the 1-channel attention head run as one
+    4-channel conv, split into tanh and sigmoid (generator.py:281-303)."""
+
+    def __init__(self, dim: int, out_dim: int, n_upsample: int, n_res: int,
+                 activ: str, pad_type: str, use_attention: bool):
+        super().__init__()
+        layers = [AdaINResBlocks(n_res, dim, activ, pad_type)]
+        d = dim
+        for _ in range(n_upsample):
+            layers += [Upsample2x(),
+                       Conv2dBlock(d, d // 2, 5, 1, 2, "ln", activ, pad_type)]
+            d //= 2
+        self.model = nn.ModuleList(layers)
+        self.image_content = Conv2dBlock(d, out_dim, 7, 1, 3, "none", "tanh",
+                                         pad_type)
+        self.use_attention = use_attention
+        if use_attention:
+            self.image_attention = Conv2dBlock(d, 1, 7, 1, 3, "none",
+                                               "sigmoid", pad_type)
+        self.dim, self.n_res, self.out_dim = dim, n_res, out_dim
+        self.pad_type = pad_type
+
+    @property
+    def num_adain_params(self) -> int:
+        return self.n_res * 2 * 2 * self.dim
+
+    def forward(self, content, adain_params):
+        sp = adain_params.reshape(content.shape[0], self.n_res, 2, 2, self.dim)
+        x = self.model[0](content, sp)
+        for m in self.model[1:]:
+            x = m(x)
+        if not self.use_attention:
+            return self.image_content(x), None
+        heads = (self.image_content.conv, self.image_attention.conv)
+        k = torch.cat([h.weight for h in heads]).to(x.dtype)
+        b = torch.cat([h.bias for h in heads]).to(x.dtype)
+        out = F.conv2d(channels_last(pad2d(x, 3, self.pad_type)), k, b)
+        return (torch.tanh(out[:, :self.out_dim]),
+                torch.sigmoid(out[:, self.out_dim:]))
+
+
+class Generator(nn.Module):
+    """Content/style autoencoder + text style transfer (AdaINGen_v2).
+
+      encode(x)                    -> (content, style_mu, style_logvar)
+      encode_txt(style, txt, lens) -> (mu, logvar)
+      decode(content, style_flat)  -> (image, attention)
+    Images and content codes are NHWC.
+    """
+
+    def __init__(self, cfg: GenConfig, input_dim: int = 3,
+                 vocab_size: int = 102, dtype: torch.dtype = torch.float32,
+                 stats: str = "2pass"):
+        super().__init__()
+        c = cfg
+        self.cfg, self.dtype = cfg, dtype
+        self.enc_style = StyleEncoder(input_dim, c.dim, c.style_downsample,
+                                      c.c_dim, c.num_cls, c.activ, c.pad_type,
+                                      c.use_map)
+        self.enc_content = ContentEncoder(input_dim, c.dim,
+                                          c.content_downsample, c.n_res,
+                                          c.activ, c.pad_type)
+        self.dec = Decoder(self.enc_content.output_dim, input_dim,
+                           c.content_downsample, c.n_res, c.activ,
+                           c.pad_type, c.use_attention)
+        self.enc_txt = TxtEncoder(vocab_size, c.embed_dim, c.hidden_size,
+                                  c.c_dim, c.num_cls, c.num_layers,
+                                  c.dropout_in, c.dropout_out)
+        self.mlp = MLP(c.style_dim, self.dec.num_adain_params, c.mlp_dim,
+                       n_blk=3, norm="none", activ=c.activ)
+        self.set_norm_stats(stats)
+
+    def set_norm_stats(self, stats: str) -> None:
+        """How every norm forms its variance ("2pass" or "1pass")."""
+        check_stats(stats)
+        for m in self.modules():
+            if isinstance(m, Conv2dBlock):
+                m.stats = stats
+
+    def _nchw(self, x):
+        """NHWC in -> NCHW in channels_last memory, compute dtype."""
+        return channels_last(x.permute(0, 3, 1, 2).to(self.dtype))
+
+    def encode(self, images):
+        x = self._nchw(images)
+        mu, logvar = self.enc_style(x)
+        content = self.enc_content(x)
+        return content.permute(0, 2, 3, 1), mu, logvar
+
+    def encode_txt(self, style_flat, tokens, lengths):
+        return self.enc_txt(style_flat, tokens, lengths)
+
+    def decode(self, content, style_flat):
+        adain_params = self.mlp(style_flat.to(self.dtype))
+        image, att = self.dec(self._nchw(content), adain_params)
+        return (image.permute(0, 2, 3, 1),
+                None if att is None else att.permute(0, 2, 3, 1))
+
+
+def _init_dense(w: torch.Tensor, init_type: str, g: torch.Generator) -> None:
+    """The reference's `weights_init` (utils.py:234-254)."""
+    fan_in = w[0].numel()
+    if init_type == "gaussian":
+        nn.init.normal_(w, 0.0, 0.02, generator=g)
+    elif init_type == "xavier":
+        nn.init.xavier_normal_(w, gain=math.sqrt(2.0), generator=g)
+    elif init_type == "kaiming":
+        nn.init.normal_(w, 0.0, math.sqrt(2.0 / fan_in), generator=g)
+    elif init_type == "orthogonal":
+        nn.init.orthogonal_(w, gain=math.sqrt(2.0), generator=g)
+    elif init_type == "default":
+        nn.init.normal_(w, 0.0, math.sqrt(1.0 / fan_in), generator=g)
+    else:
+        raise ValueError(f"unsupported init: {init_type}")
+
+
+@torch.no_grad()
+def init_weights(gen: Generator, init_type: str, seed: int) -> None:
+    """Random weights from `seed`: conv/linear kernels by `init_type` with
+    zero biases, LSTM uniform(+-1/sqrt(H)) (one bias, the other zero),
+    N(0, 1) embedding, LayerNorm gamma U(0, 1) and beta 0."""
+    g = torch.Generator().manual_seed(seed)
+    for name, p in gen.named_parameters():
+        if name.startswith("enc_txt.lstm."):
+            if name.startswith("enc_txt.lstm.bias_hh"):
+                p.zero_()
+            else:
+                bound = 1.0 / math.sqrt(gen.cfg.hidden_size)
+                nn.init.uniform_(p, -bound, bound, generator=g)
+        elif name == "enc_txt.embed_tokens.weight":
+            nn.init.normal_(p, 0.0, 1.0, generator=g)
+        elif name.endswith(".gamma"):
+            nn.init.uniform_(p, 0.0, 1.0, generator=g)
+        elif name.endswith(".weight"):
+            _init_dense(p, init_type, g)
+        else:
+            p.zero_()
+
+
+def build_generator(cfg: Config, vocab_size: int, device="cuda",
+                    seed: int = 0) -> Generator:
+    """The generator of `cfg` with random weights from `seed`, in eval
+    mode on `device` (the card unless the caller asks for the CPU).
+
+    Compute dtype from `cfg.compute_dtype`, variance form from
+    `cfg.norm_stats`.  `use_pallas`, `stem_pallas` and `parity_convs` pick
+    TPU code paths and change nothing here: on the card the norm kernels
+    always run, and the convolutions are plain ones."""
+    dev = resolve_device(device)
+    if cfg.norm_compute != "fp32":
+        raise NotImplementedError(
+            f"norm_compute {cfg.norm_compute!r}: only 'fp32' is ported so far")
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    gen = Generator(cfg.gen, cfg.input_dim, vocab_size, dtype=dtype,
+                    stats=cfg.norm_stats)
+    init_weights(gen, cfg.init, seed)
+    return gen.to(dev).eval()

@@ -1,0 +1,205 @@
+"""Building blocks of the port (NCHW, channels_last memory, fp32 params).
+
+The counterparts of `dwcgan_tpu/ops/blocks.py`.  Parameters stay fp32 and
+are cast to the activation dtype where they are used, as the JAX package
+casts to its compute dtype.  Module attribute names follow the reference
+torch model (`conv`, `norm.gamma`, `fc`, `model.{i}`), so a port
+`state_dict()` has the reference's names.
+
+In this slice: norms none, in, ln and adain; activations other than prelu.
+Spectral norm, bn and PReLU come with a later slice and raise here.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dwcgan_tpu_torch.ops.norms import (adain, adain_residual, instance_norm,
+                                        layer_norm_ref)
+
+# LeakyReLU slopes differ between conv and linear blocks in the reference
+# (networks.py:559 vs :614).
+CONV_LRELU_SLOPE = 0.1
+LINEAR_LRELU_SLOPE = 0.2
+
+CONV_NORMS = ("none", "in", "ln", "adain")
+
+
+def activation(name: str, *, linear_block: bool = False) -> Callable:
+    slope = LINEAR_LRELU_SLOPE if linear_block else CONV_LRELU_SLOPE
+    table = {
+        "relu": F.relu,
+        "lrelu": lambda x: F.leaky_relu(x, slope),
+        "selu": F.selu,
+        "tanh": torch.tanh,
+        "sigmoid": torch.sigmoid,
+        "none": lambda x: x,
+    }
+    if name not in table:
+        raise NotImplementedError(f"activation {name!r} is not in this slice "
+                                  f"of the port ({sorted(table)})")
+    return table[name]
+
+
+def pad2d(x: torch.Tensor, padding: int, pad_type: str) -> torch.Tensor:
+    """Spatial padding of an NCHW tensor (reflect / replicate / zero)."""
+    if padding == 0:
+        return x
+    mode = {"reflect": "reflect", "replicate": "replicate",
+            "zero": "constant"}[pad_type]
+    return F.pad(x, (padding,) * 4, mode=mode)
+
+
+def channels_last(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+class LayerNormRef(nn.Module):
+    """Per-channel affine of the reference LayerNorm (`gamma`, `beta`)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.empty(dim).uniform_())
+        self.beta = nn.Parameter(torch.zeros(dim))
+
+
+class Conv2dBlock(nn.Module):
+    """pad -> conv -> norm -> activation (networks.py:524-585).
+
+    A ReLU after in/adain is fused into the norm kernel."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, norm: str = "none",
+                 activ: str = "relu", pad_type: str = "zero"):
+        super().__init__()
+        if norm not in CONV_NORMS:
+            raise NotImplementedError(f"norm {norm!r} is not in this slice of "
+                                      f"the port ({CONV_NORMS})")
+        self.padding, self.pad_type, self.stride = padding, pad_type, stride
+        self.norm_type, self.activ = norm, activ
+        # how the norm forms its variance; `Generator.set_norm_stats` sets it
+        self.stats = "2pass"
+        self.act = activation(activ)
+        self.conv = nn.Conv2d(in_dim, out_dim, kernel_size, stride, bias=True)
+        if norm == "ln":
+            self.norm = LayerNormRef(out_dim)
+
+    def conv_raw(self, x: torch.Tensor) -> torch.Tensor:
+        """pad + conv in the activation dtype, channels_last out."""
+        x = channels_last(pad2d(x, self.padding, self.pad_type))
+        y = F.conv2d(x, self.conv.weight.to(x.dtype),
+                     self.conv.bias.to(x.dtype), stride=self.stride)
+        return channels_last(y)
+
+    def forward(self, x, adain_scale=None, adain_bias=None):
+        y = self.conv_raw(x)
+        fuse_relu = self.activ == "relu"
+        if self.norm_type == "in":
+            y = instance_norm(y, relu=fuse_relu, stats=self.stats)
+        elif self.norm_type == "adain":
+            if adain_scale is None or adain_bias is None:
+                raise ValueError("adain norm requires style-derived scale/bias")
+            y = adain(y, adain_scale, adain_bias, relu=fuse_relu,
+                      stats=self.stats)
+        else:
+            fuse_relu = False
+            if self.norm_type == "ln":
+                y = layer_norm_ref(y, self.norm.gamma, self.norm.beta,
+                                   stats=self.stats)
+        return y if fuse_relu else self.act(y)
+
+
+class LinearBlock(nn.Module):
+    """fc -> activation (networks.py:587-634); norm none only in this slice."""
+
+    def __init__(self, in_dim: int, out_dim: int, norm: str = "none",
+                 activ: str = "relu"):
+        super().__init__()
+        if norm != "none":
+            raise NotImplementedError(f"LinearBlock norm {norm!r} is not in "
+                                      "this slice of the port")
+        self.fc = nn.Linear(in_dim, out_dim)
+        self.act = activation(activ, linear_block=True)
+
+    def forward(self, x):
+        return self.act(F.linear(x, self.fc.weight.to(x.dtype),
+                                 self.fc.bias.to(x.dtype)))
+
+
+class ResBlock(nn.Module):
+    """conv3x3(norm, act) -> conv3x3(norm, none) + skip (networks.py:509-522)."""
+
+    def __init__(self, dim: int, norm: str = "in", activ: str = "relu",
+                 pad_type: str = "zero"):
+        super().__init__()
+        self.model = nn.ModuleList([
+            Conv2dBlock(dim, dim, 3, 1, 1, norm, activ, pad_type),
+            Conv2dBlock(dim, dim, 3, 1, 1, norm, "none", pad_type)])
+
+    def forward(self, x):
+        return x + self.model[1](self.model[0](x))
+
+
+class ResBlocks(nn.Module):
+    """Stack of ResBlock (networks.py:480-489)."""
+
+    def __init__(self, num_blocks: int, dim: int, norm: str = "in",
+                 activ: str = "relu", pad_type: str = "zero"):
+        super().__init__()
+        self.model = nn.ModuleList([ResBlock(dim, norm, activ, pad_type)
+                                    for _ in range(num_blocks)])
+
+    def forward(self, x):
+        for blk in self.model:
+            x = blk(x)
+        return x
+
+
+class AdaINResBlocks(nn.Module):
+    """AdaIN residual stack with the style parameters passed in.
+
+    `style_params` is [N, num_blocks, 2, 2, dim]: per block, per conv,
+    (0 = bias, 1 = scale) (blocks.py:377-378, 384-385).  The first conv's
+    AdaIN (+ ReLU) and the second conv's `x + AdaIN(y)` are one norm call
+    each."""
+
+    def __init__(self, num_blocks: int, dim: int, activ: str = "relu",
+                 pad_type: str = "zero"):
+        super().__init__()
+        self.num_blocks, self.dim = num_blocks, dim
+        self.model = nn.ModuleList([ResBlock(dim, "adain", activ, pad_type)
+                                    for _ in range(num_blocks)])
+
+    def forward(self, x, style_params):
+        if tuple(style_params.shape[1:]) != (self.num_blocks, 2, 2, self.dim):
+            raise ValueError(f"bad style_params shape {tuple(style_params.shape)}")
+        for b, blk in enumerate(self.model):
+            first, second = blk.model
+            y = first(x, adain_scale=style_params[:, b, 0, 1],
+                      adain_bias=style_params[:, b, 0, 0])
+            y = second.conv_raw(y)
+            x = adain_residual(x, y, style_params[:, b, 1, 1],
+                               style_params[:, b, 1, 0], stats=second.stats)
+        return x
+
+
+class MLP(nn.Module):
+    """LinearBlock stack; the last has no norm/activation (networks.py:491-503)."""
+
+    def __init__(self, in_dim: int, out_dim: int, dim: int, n_blk: int,
+                 norm: str = "none", activ: str = "relu"):
+        super().__init__()
+        blocks = [LinearBlock(in_dim, dim, norm, activ)]
+        blocks += [LinearBlock(dim, dim, norm, activ) for _ in range(n_blk - 2)]
+        blocks.append(LinearBlock(dim, out_dim, "none", "none"))
+        self.model = nn.ModuleList(blocks)
+
+    def forward(self, x):
+        x = x.reshape(x.shape[0], -1)
+        for blk in self.model:
+            x = blk(x)
+        return x
