@@ -10,18 +10,42 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 2. kernels: each of the four hand-written kernels at every shape the
    serving path gives it (batch 32), in fp32 and bf16 and in both stats
    modes, against its plain PyTorch version on the card; kernel, plain and
-   library device times (20 calls in a CUDA graph, CUDA events, cold L2)
-   beside the bytes bound, and the kernel's eager time (wrapper included);
+   library (F.instance_norm, for IN and AdaIN) device times (20 calls in a
+   CUDA graph, CUDA events, cold L2) beside the bytes bound, and the
+   kernel's eager time (wrapper included);
 3. the slice in fp32 on the card (kernels) against the CPU (plain
    versions), flagship width, 4 images, TF32 off: max abs diff <= 2e-3;
 4. the slice at flagship width in bf16 (`configs/celeba_faces.yaml`, batch
    32, synthesized commands) through `translate_batch`: launch counts of
    exactly 11 IN, 4 AdaIN+ReLU, 4 AdaIN-residual and 2 LayerNorm per batch,
-   finite output in [-1, 1], images/s and peak memory.
+   finite output in [-1, 1], images/s and peak memory;
+5. backward kernels: each of the three hand-written backward kernels (four
+   counters: AdaIN's serves the residual form too) at every shape the
+   flagship training step gives it, in fp32 and bf16 and both stats modes,
+   against its plain PyTorch backward on the card (dx and the parameter
+   gradients), after the forward kernel at the same shape against its plain
+   forward with phase 2's tolerance; times and bound as in phase 2, the
+   bound counting x and the incoming gradient read once and dx written
+   once; the library time for the instance norm and AdaIN is the backward
+   of `F.instance_norm` (no ReLU; AdaIN as one call on x viewed as
+   [1, N*C, H, W]) through `torch.autograd.grad(..., retain_graph=True)`,
+   timed eagerly;
+6. one fp32 training step at flagship width (batch 2, VGG on, TF32 off,
+   dropout off, the same weights and injected style draws) on the card
+   against the CPU: every loss metric and both gradient norms within
+   rtol 1e-3; prints the CPU step's seconds;
+7. the flagship training step (bf16, batch 16, 1pass, VGG on) through
+   `cli/train.py`'s `build_trainer`: exact launches per step (forward IN 24,
+   AdaIN 8, AdaIN-residual 8, LayerNorm 4; backward 23 / 8 / 8 / 4), finite
+   losses, parameters and EMA moved; 3 warm-up steps, then 12 steps timed
+   by CUDA events: median, min and max ms per step, images/s, peak memory.
 
-The last lines are the `kernels` JSON, the nvidia-smi line and
-`{"ok": true, "device": {...}}`.  Without a card it exits 1 and prints no
-result.
+The last lines are the `kernels` JSON (seven kernels: the four forward
+ones, then the instance-norm, AdaIN and LayerNorm backwards; a forward
+kernel's times and `launches` are per served batch, with `launches_train`
+its launches per training step), the
+nvidia-smi line and `{"ok": true, "device": {...}}`.  Without a card it
+exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -36,6 +60,8 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from dwcgan_tpu_torch.cli.train import (build_trainer, build_vgg_loss,
+                                        synthetic_batches)
 from dwcgan_tpu_torch.cli.translate import synthetic_requests, translate_batch
 from dwcgan_tpu_torch.config import load_config
 from dwcgan_tpu_torch.models.generator import build_generator
@@ -43,6 +69,7 @@ from dwcgan_tpu_torch.ops import norms
 from dwcgan_tpu_torch.ops.cuda import build, kernels
 from dwcgan_tpu_torch.text.vocab import Vocab, encode_commands
 from dwcgan_tpu_torch.train.sampler import make_infer_fn
+from dwcgan_tpu_torch.train.step import make_train_step
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "celeba_faces.yaml"
@@ -71,6 +98,8 @@ SITES = (
 )
 EXPECTED_LAUNCHES = {"instance_norm": 11, "adain": 4, "adain_residual": 4,
                      "layer_norm_ref": 2}
+# serving launches no backward kernel
+SERVE_LAUNCHES = {k: EXPECTED_LAUNCHES.get(k, 0) for k in kernels.LAUNCHES}
 REPLACES = {
     "instance_norm": "dwcgan_tpu/ops/pallas/norm_kernels.py:106",
     "adain": "dwcgan_tpu/ops/pallas/norm_kernels.py:160",
@@ -163,7 +192,8 @@ def site_inputs(kernel, shape, dtype, g):
             0.1 * torch.randn(c, generator=g, device=dev))
 
 
-def run_kernel(kernel, args, relu, stats):
+def run_kernel_stats(kernel, args, relu, stats):
+    """The forward kernel: (output, saved statistics)."""
     two_pass = stats == "2pass"
     if kernel == "instance_norm":
         return kernels.instance_norm(*args, relu=relu, two_pass=two_pass)
@@ -172,6 +202,10 @@ def run_kernel(kernel, args, relu, stats):
     if kernel == "adain_residual":
         return kernels.adain_residual(*args, two_pass=two_pass)
     return kernels.layer_norm_ref(*args, two_pass=two_pass)
+
+
+def run_kernel(kernel, args, relu, stats):
+    return run_kernel_stats(kernel, args, relu, stats)[0]
 
 
 def run_plain(kernel, args, relu, stats):
@@ -207,19 +241,34 @@ def site_bound(kernel, shape, dtype, stats):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def adain_library_args(x, scale, bias):
+    """AdaIN as one PyTorch call: F.instance_norm over x viewed as
+    [1, N*C, H, W], with scale and bias flattened to its per-channel weight
+    and bias (eps 1e-5).  x is given to it in its own layout, NCHW."""
+    n, c, h, w = x.shape
+    return x.contiguous().view(1, n * c, h, w), scale.flatten(), bias.flatten()
+
+
 def library_call(kernel, args):
     """One PyTorch call computing the same function, where one exists:
-    F.instance_norm for the instance norm (without the fused ReLU);
-    AdaIN, its residual form and the reference LayerNorm have none."""
+    F.instance_norm for the instance norm (without the fused ReLU) and for
+    AdaIN (without the ReLU; for the residual form, without the add); the
+    reference LayerNorm (unbiased std, eps added to it) has none."""
     if kernel == "instance_norm":
         return lambda i: F.instance_norm(args[i % len(args)][0])
-    return None
+    if kernel == "layer_norm_ref":
+        return None
+    lib = [adain_library_args(*a[-3:]) for a in args]   # (x or y, scale, bias)
+
+    def call(i):
+        x, w, b = lib[i % len(lib)]
+        return F.instance_norm(x, weight=w, bias=b)
+    return call
 
 
-def check_site(kernel, shape, relu, dtype, stats, g):
-    args = site_inputs(kernel, shape, dtype, g)
-    out = run_kernel(kernel, args, relu, stats)
-    torch.cuda.synchronize()
+def check_forward(kernel, shape, relu, dtype, stats, args, out):
+    """The forward kernel's `out` against its plain version in fp32: max abs
+    err, or AssertionError outside the tolerance."""
     ref32 = run_plain(kernel, tuple(a.float() for a in args), relu, stats)
     if dtype == torch.float32:
         err = (out - ref32).abs()
@@ -236,6 +285,14 @@ def check_site(kernel, shape, relu, dtype, stats, g):
         raise AssertionError(
             f"{kernel} {shape} {dtype} {stats} relu={relu}: {bad} elements "
             f"outside tolerance, max abs err {max_err:.3e}")
+    return max_err
+
+
+def check_site(kernel, shape, relu, dtype, stats, g):
+    args = site_inputs(kernel, shape, dtype, g)
+    out = run_kernel(kernel, args, relu, stats)
+    torch.cuda.synchronize()
+    max_err = check_forward(kernel, shape, relu, dtype, stats, args, out)
 
     # timing: rotate over copies of the inputs so the L2 is cold, as on the
     # path, where each norm reads a fresh conv output
@@ -270,6 +327,252 @@ def phase_kernels():
     return rows
 
 
+# ---------------------------------------------------------------- phase 5
+
+TRAIN_BATCH = 16
+# The norm backward call sites of one flagship training step (bf16, batch
+# 16): (counter, the forward op at the site, NCHW shape, fused relu, calls)
+BWD_SITES = tuple(
+    ("instance_norm_bwd", "instance_norm", shape, relu, calls)
+    for b in (TRAIN_BATCH, 3 * TRAIN_BATCH)      # encode, re-encode at 3n
+    for shape, relu, calls in (((b, 64, 128, 128), True, 1),
+                               ((b, 128, 64, 64), True, 1),
+                               ((b, 256, 32, 32), True, 5),
+                               ((b, 256, 32, 32), False, 4))) + (
+    ("instance_norm_bwd", "instance_norm", (TRAIN_BATCH, 512, 16, 16), False, 1),  # VGG
+) + tuple(
+    site for b in (4 * TRAIN_BATCH, TRAIN_BATCH)  # decode at 4n, cycle at n
+    for site in (("adain_bwd", "adain", (b, 256, 32, 32), True, 4),
+                 ("adain_residual_bwd", "adain_residual", (b, 256, 32, 32), False, 4),
+                 ("layer_norm_ref_bwd", "layer_norm_ref", (b, 128, 64, 64), False, 1),
+                 ("layer_norm_ref_bwd", "layer_norm_ref", (b, 64, 128, 128), False, 1)))
+EXPECTED_TRAIN_LAUNCHES = {
+    "instance_norm": 24, "adain": 8, "adain_residual": 8, "layer_norm_ref": 4,
+    "instance_norm_bwd": 23, "adain_bwd": 8, "adain_residual_bwd": 8,
+    "layer_norm_ref_bwd": 4}
+BWD_REPLACES = {
+    "instance_norm_bwd": "dwcgan_tpu/ops/pallas/norm_kernels.py:125",
+    "adain_bwd": "dwcgan_tpu/ops/pallas/norm_kernels.py:186",
+    "layer_norm_ref_bwd": "dwcgan_tpu/ops/pallas/norm_kernels.py:256",
+}
+# fp32 operations per element of the backward's arithmetic (sums: subtract,
+# multiply, multiply, two adds; apply: subtract, three multiply-adds)
+BWD_OPS_PER_ELEM = 11
+BWD_FP32_REL = 1e-4   # fp32: of each gradient's largest magnitude
+BWD_BF16_REL = 2e-2   # bf16: dx rounds to bf16 (2^-9 relative) on top
+STEP_RTOL = 1e-3      # fp32 training step, card vs CPU
+TIMED_STEPS = 12
+
+
+def run_bwd(counter, x, gr, st, out, params, relu, residual_y=None):
+    """The backward kernel of a site: the gradients of its inputs."""
+    if counter == "instance_norm_bwd":
+        return (kernels.instance_norm_bwd(x, gr, st, out if relu else None),)
+    if counter == "adain_bwd":
+        return kernels.adain_bwd(x, gr, st, params[0], out if relu else None)
+    if counter == "adain_residual_bwd":
+        return kernels.adain_bwd(residual_y, gr, st, params[0], residual=True)
+    return kernels.layer_norm_ref_bwd(x, gr, st, params[0])
+
+
+def run_bwd_plain(counter, x, gr, out, params, relu, stats, residual_y=None):
+    mask = out if relu else None
+    if counter == "instance_norm_bwd":
+        return (norms.instance_norm_bwd_plain(x, gr, mask, stats),)
+    if counter == "adain_bwd":
+        return norms.adain_bwd_plain(x, params[0], gr, mask, stats)
+    if counter == "adain_residual_bwd":
+        return norms.adain_bwd_plain(residual_y, params[0], gr, None, stats)
+    return norms.layer_norm_ref_bwd_plain(x, params[0], gr, stats)
+
+
+def bwd_bound(shape, dtype, stats):
+    """(ms, by): x and the incoming gradient read once, dx written once."""
+    n, c, h, w = shape
+    elems = n * c * h * w
+    size = torch.finfo(dtype).bits // 8
+    t_bytes = 3 * elems * size / HBM_BYTES_PER_S
+    t_ops = elems * BWD_OPS_PER_ELEM / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_bwd_site(counter, fwd, shape, relu, dtype, stats, g):
+    args = site_inputs(fwd, shape, dtype, g)
+    # the normalised activation and the affine parameters of the site
+    x = args[1] if fwd == "adain_residual" else args[0]
+    params = args[2:] if fwd == "adain_residual" else args[1:]
+    out, st = run_kernel_stats(fwd, args, relu, stats)
+    torch.cuda.synchronize()
+    # the forward at the training shape first: `out` is the backward's mask
+    fwd_err = check_forward(fwd, shape, relu, dtype, stats, args, out)
+    gr = torch.randn(out.shape, generator=g, device="cuda").to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    got = run_bwd(counter, x, gr, st, out, params, relu, x)
+    torch.cuda.synchronize()
+    want = run_bwd_plain(counter, x.float(), gr.float(), out.float(), params,
+                         relu, stats, x.float())
+    rel = BWD_FP32_REL if dtype == torch.float32 else BWD_BF16_REL
+    max_err, max_rel = 0.0, 0.0
+    for a, b in zip(got, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{counter} {shape} {dtype} {stats}: not finite")
+        scale = float(b.abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        max_err, max_rel = max(max_err, err), max(max_rel, err / max(scale, 1e-30))
+        if err > rel * scale + 1e-6:
+            raise AssertionError(f"{counter} {shape} {dtype} {stats} relu={relu}: "
+                                 f"max abs err {err:.3e} vs largest {scale:.3e}")
+
+    # timing on copies of the inputs (cold L2), as phase 2
+    in_bytes = 2 * x.numel() * x.element_size()
+    n_copies = max(1, math.ceil(COLD_L2_BYTES / in_bytes))
+    copies = [(x, gr, st, out)] + [
+        (x.clone(memory_format=torch.preserve_format),
+         gr.clone(memory_format=torch.preserve_format), st.clone(),
+         out.clone(memory_format=torch.preserve_format))
+        for _ in range(n_copies - 1)]
+    kern = lambda i: run_bwd(counter, copies[i % n_copies][0], copies[i % n_copies][1],
+                             copies[i % n_copies][2], copies[i % n_copies][3],
+                             params, relu, copies[i % n_copies][0])
+    ms = device_ms(kern)
+    eager_ms = time_ms(kern)
+    plain_ms = device_ms(lambda i: run_bwd_plain(
+        counter, copies[i % n_copies][0], copies[i % n_copies][1],
+        copies[i % n_copies][3], params, relu, stats, copies[i % n_copies][0]))
+    library_ms = None
+    if counter != "layer_norm_ref_bwd":
+        # the backward of F.instance_norm (the ReLU left out): dx alone for
+        # the instance norm, dx, dscale and dbias for AdaIN's form of it
+        graphs = []
+        for cx, cg, _, _ in copies:
+            if counter == "instance_norm_bwd":
+                xr = cx.detach().requires_grad_()
+                graphs.append((F.instance_norm(xr), (xr,), cg))
+                continue
+            xv, w, b = (t.detach().requires_grad_()
+                        for t in adain_library_args(cx, *params))
+            graphs.append((F.instance_norm(xv, weight=w, bias=b), (xv, w, b),
+                           cg.contiguous().view(xv.shape)))
+        library_ms = time_ms(lambda i: torch.autograd.grad(
+            graphs[i % n_copies][0], graphs[i % n_copies][1],
+            graphs[i % n_copies][2], retain_graph=True))
+        del graphs
+    bound_ms, bound_by = bwd_bound(shape, dtype, stats)
+    return dict(kernel=counter, shape=list(shape), relu=relu,
+                dtype=str(dtype).replace("torch.", ""), stats=stats,
+                max_abs_err=max_err, max_rel_err=max_rel,
+                fwd_max_abs_err=fwd_err, ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_backward():
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows = []
+    for counter, fwd, shape, relu, calls in BWD_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for stats in ("2pass", "1pass"):
+                row = check_bwd_site(counter, fwd, shape, relu, dtype, stats, g)
+                row["calls_per_step"] = calls
+                rows.append(row)
+                log("bwd_check " + json.dumps(row))
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------- phases 6, 7
+
+def _draws(cfg, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    shape = (n, cfg.gen.num_cls, cfg.c_dim)
+    return {"style1": torch.randn(shape, generator=g),
+            "style2": torch.randn(shape, generator=g)}
+
+
+def phase_step_fp32():
+    """One fp32 step on the card against the same step on the CPU.  Both
+    trainers draw their weights from the same seed on the CPU's generator,
+    so they start identical; dropout is off and the style draws are given."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config(str(CONFIG))
+    cfg.compute_dtype, cfg.batch_size = "float32", 2
+    results, secs = [], []
+    for dev in ("cpu", "cuda"):
+        state, _, _ = build_trainer(cfg, dev, seed=SEED)
+        step = make_train_step(cfg, state.gen, state.dis, state.gen_opt,
+                               state.dis_opt, vgg_loss_fn=build_vgg_loss(cfg, dev),
+                               _deterministic=True)
+        batch = synthetic_batches(cfg, dev, n=1, seed=SEED + 7)[0]
+        draws = {k: v.to(dev) for k, v in _draws(cfg, 2, SEED + 8).items()}
+        t0 = time.perf_counter()
+        m = step(state, batch, draws=draws)
+        results.append({k: float(v) for k, v in m.items()})
+        secs.append(time.perf_counter() - t0)
+    torch.backends.cudnn.allow_tf32 = True
+    cpu, gpu = results
+    worst = max(abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu)
+    bad = {k: (cpu[k], gpu[k]) for k in cpu
+           if abs(gpu[k] - cpu[k]) > STEP_RTOL * abs(cpu[k]) + 1e-6}
+    log(f"step_fp32: flagship width, batch 2, VGG on, every metric card vs CPU: "
+        f"worst relative diff {worst:.3e} (rtol {STEP_RTOL}); CPU step "
+        f"{secs[0]:.1f} s, card step (first, cold) {secs[1]:.1f} s; metrics "
+        + json.dumps({k: [cpu[k], gpu[k]] for k in sorted(cpu)}))
+    if bad or not all(math.isfinite(v) for v in gpu.values()):
+        raise AssertionError(f"fp32 step card vs CPU: {bad}")
+    return worst
+
+
+def phase_train_bf16(card):
+    """The flagship step through cli/train.py's trainer."""
+    cfg = load_config(str(CONFIG))
+    dev = torch.device("cuda")
+    state, step, _ = build_trainer(cfg, dev, seed=SEED)
+    batches = synthetic_batches(cfg, dev, seed=SEED + 9)
+    gen0 = [p.detach().clone() for p in state.gen.parameters()]
+    ema0 = [p.detach().clone() for p in state.ema_gen.parameters()]
+    for i in range(3):
+        step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    m = step(state, batches[3 % len(batches)])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    metrics = {k: float(v) for k, v in m.items()}
+    log(f"train_bf16: {cfg.compute_dtype}, norm_stats {cfg.norm_stats}, batch "
+        f"{cfg.batch_size}, vgg_w {cfg.vgg_w}, launches per step {launches}")
+    if launches != EXPECTED_TRAIN_LAUNCHES:
+        raise AssertionError(f"launches {launches} != {EXPECTED_TRAIN_LAUNCHES}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite metrics {metrics}")
+    moved = lambda now, before: max(float((a.detach() - b).abs().max())
+                                    for a, b in zip(now, before))
+    d_gen, d_ema = moved(state.gen.parameters(), gen0), moved(state.ema_gen.parameters(), ema0)
+    if not (d_gen > 0 and 0 < d_ema < d_gen):
+        raise AssertionError(f"parameters moved {d_gen}, EMA {d_ema}")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batches[i % len(batches)])
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    peak = torch.cuda.max_memory_allocated()
+    ev = sorted(times)
+    med = ev[len(ev) // 2]
+    log(f"train_bf16: {TIMED_STEPS} steps of batch {cfg.batch_size} after 4: "
+        f"CUDA-event ms per step median {med:.3f}, min {ev[0]:.3f}, max "
+        f"{ev[-1]:.3f} -> {cfg.batch_size / (med / 1e3):.2f} images/s at the "
+        f"median; peak memory {peak / 2**20:.0f} MiB; last metrics "
+        + json.dumps({k: float(v) for k, v in m.items()}) + f"; card {card}")
+    return launches
+
+
 # ---------------------------------------------------------------- phases 3, 4
 
 def phase_slice_fp32(vocab):
@@ -290,7 +593,7 @@ def phase_slice_fp32(vocab):
     diff = float((gpu - cpu).abs().max())
     log(f"slice_fp32: batch 4, norm_stats {cfg.norm_stats}, launches {ran}, "
         f"max abs diff card vs CPU {diff:.3e} (tolerance {SLICE_ATOL})")
-    if not torch.isfinite(gpu).all() or diff > SLICE_ATOL or ran != EXPECTED_LAUNCHES:
+    if not torch.isfinite(gpu).all() or diff > SLICE_ATOL or ran != SERVE_LAUNCHES:
         raise AssertionError(f"fp32 slice: diff {diff}, launches {ran}")
     torch.backends.cudnn.allow_tf32 = True
     return diff
@@ -310,8 +613,8 @@ def phase_serve_bf16(vocab, card):
     launches = dict(kernels.LAUNCHES)
     log(f"serve_bf16: {cfg.compute_dtype}, norm_stats {cfg.norm_stats}, "
         f"batch {BATCH}, launches per batch {launches}")
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError(f"launches {launches} != {EXPECTED_LAUNCHES}")
+    if launches != SERVE_LAUNCHES:
+        raise AssertionError(f"launches {launches} != {SERVE_LAUNCHES}")
     if tuple(out.shape) != (BATCH, cfg.image_size, cfg.image_size, 3) \
             or not torch.isfinite(out).all() or float(out.abs().max()) > 1.0:
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, "
@@ -375,30 +678,48 @@ def main() -> int:
     rows = phase_kernels()
     vocab = Vocab(load_config(str(CONFIG)).dataset)
     phase_slice_fp32(vocab)
-    launches = phase_serve_bf16(vocab, card)
+    serve_launches = phase_serve_bf16(vocab, card)
+    bwd_rows = phase_backward()
+    phase_step_fp32()
+    train_launches = phase_train_bf16(card)
 
-    # per kernel, the flagship setting (bf16, norm_stats 1pass): times summed
-    # over the call sites of one served batch
+    # per kernel, the flagship setting (bf16, norm_stats 1pass): forward
+    # times summed over the call sites of one served batch, backward times
+    # over those of one training step
     cfg = load_config(str(CONFIG))
     summary = []
-    for name in EXPECTED_LAUNCHES:
-        mine = [r for r in rows if r["kernel"] == name]
+
+    def entry(name, replaces, mine, per_key, per, launches, extra):
         flag = [r for r in mine if r["dtype"] == "bfloat16"
                 and r["stats"] == cfg.norm_stats]
-        tot = lambda key: sum(r[key] * r["calls_per_batch"] for r in flag)
+        tot = lambda key: sum(r[key] * r[per_key] for r in flag)
         lib = None if flag[0]["library_ms"] is None else tot("library_ms")
-        summary.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in mine
-                            if r["dtype"] == "float32"),
+        return dict(
+            name=name, route="cuda", source=SOURCE, replaces=replaces,
+            launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in mine if r["dtype"] == "float32"),
             max_abs_err_bf16=max(r["max_abs_err"] for r in mine
                                  if r["dtype"] == "bfloat16"),
             ms=tot("ms"), eager_ms=tot("eager_ms"), plain_ms=tot("plain_ms"),
             bound_ms=tot("bound_ms"),
             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in flag)
-            else "operations",
-            library_ms=lib, per="served batch of 32, bf16, " + cfg.norm_stats))
+            else "operations", library_ms=lib, per=per, **extra)
+
+    for name in EXPECTED_LAUNCHES:
+        summary.append(entry(
+            name, REPLACES[name], [r for r in rows if r["kernel"] == name],
+            "calls_per_batch", "served batch of 32, bf16, " + cfg.norm_stats,
+            serve_launches[name], {"launches_train": train_launches[name]}))
+    for name, counters in (("instance_norm_bwd", ("instance_norm_bwd",)),
+                           ("adain_bwd", ("adain_bwd", "adain_residual_bwd")),
+                           ("layer_norm_ref_bwd", ("layer_norm_ref_bwd",))):
+        summary.append(entry(
+            name, BWD_REPLACES[name], [r for r in bwd_rows if r["kernel"] in counters],
+            "calls_per_step", "training step of 16, bf16, " + cfg.norm_stats,
+            sum(train_launches[c] for c in counters),
+            {"launches_by_counter": {c: train_launches[c] for c in counters}}))
+    if any(k["launches"] == 0 or k.get("launches_train") == 0 for k in summary):
+        raise AssertionError("a kernel of the serving or training path never launched")
     print(json.dumps({"kernels": summary}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
-"""Where the time of a served batch goes, on the card.
+"""Where the time of a served batch, or of a training step, goes, on the
+card.
 
     python -m dwcgan_tpu_torch.cli.profile_serve \
         [--config configs/celeba_faces.yaml] [--batch 32] [--batches 5] \
         [--out profile_serve.json]
+    python -m dwcgan_tpu_torch.cli.profile_serve --train \
+        [--config configs/celeba_faces.yaml] [--batches 5] [--out ...]
 
 Builds the generator of `--config` with random weights from `--seed`, makes
 `--batch` seeded requests (smooth random images, commands synthesized from
@@ -16,6 +19,10 @@ and writes (JSON, `--out`):
 - device time per kernel group (this port's norm kernels, convolutions,
   matrix products, the LSTM, everything else) and the top kernels by name;
 - the card's name and power limit.
+
+With `--train` it profiles `--batches` training steps of the config's batch
+size (`cli/train.py`'s trainer, synthetic batches, after 3 warm-up steps)
+instead, and reports per step.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from collections import defaultdict
 
 import torch
 
+from dwcgan_tpu_torch.cli.train import build_trainer, synthetic_batches
 from dwcgan_tpu_torch.cli.translate import synthetic_requests, translate_batch
 from dwcgan_tpu_torch.config import load_config
 from dwcgan_tpu_torch.device import resolve_device
@@ -37,6 +45,10 @@ from dwcgan_tpu_torch.train.sampler import make_infer_fn
 
 # kernel-name substrings -> group (first match wins; lower case)
 GROUPS = (
+    ("norm backward kernels (this port)", ("bwd_sums_kernel",
+                                           "bwd_finalize_kernel",
+                                           "bwd_apply_kernel",
+                                           "ln_param_grads_kernel")),
     ("norm kernels (this port)", ("moments_kernel", "finalize_kernel",
                                   "apply_kernel")),
     ("lstm", ("lstm", "rnn", "persist")),
@@ -68,6 +80,8 @@ def main(argv=None) -> dict:
     p.add_argument("--batches", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None)
+    p.add_argument("--train", action="store_true",
+                   help="profile training steps instead of served batches")
     args = p.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -75,11 +89,18 @@ def main(argv=None) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     cfg = load_config(args.config)
-    vocab = Vocab(cfg.dataset)
-    gen = build_generator(cfg, vocab.size, device=dev, seed=args.seed)
-    infer = make_infer_fn(cfg, gen)
-    imgs, cmds = synthetic_requests(args.batch, cfg.image_size, args.seed + 2)
-    serve = lambda: translate_batch(infer, imgs, cmds, vocab, cfg.max_text_len, dev)
+    if args.train:
+        state, step, _ = build_trainer(cfg, dev, seed=args.seed)
+        batches = synthetic_batches(cfg, dev, seed=args.seed + 9)
+        serve = lambda: step(state, batches[state.step % len(batches)])
+        args.batch = cfg.batch_size
+    else:
+        vocab = Vocab(cfg.dataset)
+        gen = build_generator(cfg, vocab.size, device=dev, seed=args.seed)
+        infer = make_infer_fn(cfg, gen)
+        imgs, cmds = synthetic_requests(args.batch, cfg.image_size, args.seed + 2)
+        serve = lambda: translate_batch(infer, imgs, cmds, vocab,
+                                        cfg.max_text_len, dev)
     for _ in range(3):
         serve()
     torch.cuda.synchronize()
@@ -106,6 +127,7 @@ def main(argv=None) -> dict:
     n = args.batches
     result = {
         "card": card, "config": args.config, "batch": args.batch,
+        "per": "training step" if args.train else "served batch",
         "compute_dtype": cfg.compute_dtype, "norm_stats": cfg.norm_stats,
         "batches": n, "wall_ms_per_batch": wall_ms / n,
         "device_ms_per_batch": busy_ms / n,
@@ -115,7 +137,7 @@ def main(argv=None) -> dict:
         "top_kernels_ms_per_batch": [[k, ms / n] for k, ms in top],
     }
     print(f"card {card}; {cfg.compute_dtype}, batch {args.batch}, "
-          f"{n} batches profiled")
+          f"{n} {result['per']}s profiled (ms below are per {result['per']})")
     print(f"wall {result['wall_ms_per_batch']:.3f} ms/batch, device "
           f"{result['device_ms_per_batch']:.3f} ms/batch, idle share "
           f"{result['device_idle_share']:.3f}")

@@ -1,4 +1,5 @@
-"""Load the JAX generator's parameters into the port.
+"""Load the JAX package's parameters into the port: generator,
+discriminator and VGG16.
 
 `load_jax_params(gen, params)` takes the parameter tree of a
 `dwcgan_tpu.models.generator.Generator` as numpy arrays, nested dicts or a
@@ -14,6 +15,13 @@ names the port keeps:
   `weight_hh_l{i}[_reverse]`, `bias_ih = b`, `bias_hh = 0`;
 - the text heads' input rows from the JAX order [h all layers, c all
   layers] to the port's per-layer order [h_l, c_l] (torch_import.py:137-150).
+
+`bias_hh` carries no JAX parameter: it is loaded as zero and stays frozen
+(`models/generator.py::freeze_lstm_bias_hh`).
+
+`load_jax_dis_params` is the inverse of `convert_reference_discriminator`
+(torch_import.py:156-169); `jax_vgg_to_state_dict` maps the VGG16 tree
+(`{name}/kernel` HWIO, `{name}/bias`) to the port's `{name}.weight` OIHW.
 """
 
 from __future__ import annotations
@@ -125,3 +133,43 @@ def load_jax_params(gen, params) -> None:
     sd = jax_to_state_dict(params, gen.cfg)
     gen.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                         strict=True)
+
+
+def jax_dis_to_state_dict(params, dis_cfg) -> Dict[str, np.ndarray]:
+    """JAX MsImageDis params -> a port (reference-named) state dict."""
+    p = flatten_params(params)
+    sd: Dict[str, np.ndarray] = {}
+    for s in range(dis_cfg.num_scales):
+        base = f"scale_{s}"
+        for j in range(dis_cfg.n_layer):
+            conv = f"{base}/Conv2dBlock_{j}/Conv_0"
+            sd[f"cnns_feat.{s}.{j}.conv.weight"] = p[f"{conv}/kernel"].transpose(3, 2, 0, 1)
+            sd[f"cnns_feat.{s}.{j}.conv.bias"] = p[f"{conv}/bias"]
+            if dis_cfg.norm == "ln" and j > 0:   # the first block has none
+                sd[f"cnns_feat.{s}.{j}.norm.gamma"] = p[f"{base}/Conv2dBlock_{j}/ln_gamma"]
+                sd[f"cnns_feat.{s}.{j}.norm.beta"] = p[f"{base}/Conv2dBlock_{j}/ln_beta"]
+        sd[f"cnns_src.{s}.weight"] = p[f"{base}/src_head/kernel"].transpose(3, 2, 0, 1)
+        sd[f"cnns_src.{s}.bias"] = p[f"{base}/src_head/bias"]
+        sd[f"cnns_cls.{s}.weight"] = p[f"{base}/cls_head/kernel"].transpose(3, 2, 0, 1)
+    return {k: np.array(v, dtype=np.float32, order="C") for k, v in sd.items()}
+
+
+def load_jax_dis_params(dis, params) -> None:
+    """Load JAX discriminator params into `dis` (strict)."""
+    sd = jax_dis_to_state_dict(params, dis.cfg)
+    dis.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                        strict=True)
+
+
+def jax_vgg_to_state_dict(params) -> Dict[str, np.ndarray]:
+    """JAX VGG16 params ({name}/kernel HWIO, {name}/bias) -> the port's
+    {name}.weight (OIHW) and {name}.bias."""
+    p = flatten_params(params)
+    sd = {}
+    for key, v in p.items():
+        name, leaf = key.rsplit("/", 1)
+        if leaf == "kernel":
+            sd[f"{name}.weight"] = v.transpose(3, 2, 0, 1)
+        else:
+            sd[f"{name}.bias"] = v
+    return {k: np.array(v, dtype=np.float32, order="C") for k, v in sd.items()}

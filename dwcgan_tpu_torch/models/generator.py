@@ -14,12 +14,21 @@ Parameters are fp32 and named as in the reference torch model
 `dwcgan_tpu/interop/torch_import.py` reads a port `state_dict()` directly.
 The convolutions and matmuls run in the compute dtype; the text encoder
 (embedding, bi-LSTM, heads) runs in fp32 whatever that dtype is.
+
+In train mode the style encoder's mapping dropout and the text encoder's
+input dropout draw their masks from the `rng` generator that `encode` and
+`encode_txt` are given; the LSTM's inter-layer dropout is `nn.LSTM`'s own
+and draws from torch's default generator of the device.
+`set_dropout(False)` turns all three off while the modules stay in train
+mode (cuDNN's LSTM backward runs only in train mode).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -27,7 +36,8 @@ from torch import nn
 from dwcgan_tpu_torch.config import Config, GenConfig
 from dwcgan_tpu_torch.device import resolve_device
 from dwcgan_tpu_torch.ops.blocks import (AdaINResBlocks, Conv2dBlock, MLP,
-                                         ResBlocks, channels_last, pad2d)
+                                         ResBlocks, channels_last, dropout,
+                                         pad2d, weights_init)
 from dwcgan_tpu_torch.ops.lstm import MaskedBiLSTM
 from dwcgan_tpu_torch.ops.norms import check_stats
 from dwcgan_tpu_torch.ops.resize import upsample2x
@@ -68,6 +78,8 @@ class StyleEncoder(nn.Module):
     (reference StyleEncoder v2, networks_v2.py:98-141).  -> (mu, logvar),
     each [N, num_cls, c_dim]."""
 
+    rate = 0.1   # the mapping MLP's dropout
+
     def __init__(self, input_dim: int, dim: int, n_downsample: int,
                  c_dim: int, num_cls: int, activ: str, pad_type: str,
                  use_map: bool):
@@ -84,14 +96,15 @@ class StyleEncoder(nn.Module):
         self.use_map = use_map
         if use_map:
             self.mapping = nn.Sequential(nn.Linear(d, d), nn.ReLU(),
-                                         nn.Dropout(0.1), nn.Linear(d, d),
+                                         nn.Dropout(self.rate), nn.Linear(d, d),
                                          nn.ReLU())
         self.fcs = nn.ModuleList([nn.Linear(d, c_dim) for _ in range(num_cls)])
         self.fcvars = nn.ModuleList([nn.Linear(d, c_dim)
                                      for _ in range(num_cls)])
         self.shape = (num_cls, c_dim)
+        self.p_map = self.rate
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         for m in self.model:
             x = m(x)
         feats = x.mean(dim=(2, 3))   # global average pool -> [N, d]
@@ -99,7 +112,7 @@ class StyleEncoder(nn.Module):
             m0, m3 = self.mapping[0], self.mapping[3]
             feats = F.relu(F.linear(feats, m0.weight.to(feats.dtype),
                                     m0.bias.to(feats.dtype)))
-            feats = F.dropout(feats, 0.1, self.training)
+            feats = dropout(feats, self.p_map, self.training, rng)
             feats = F.relu(F.linear(feats, m3.weight.to(feats.dtype),
                                     m3.bias.to(feats.dtype)))
         shape = (x.shape[0],) + self.shape
@@ -133,12 +146,13 @@ class TxtEncoder(nn.Module):
         self.fcvars = nn.ModuleList([nn.Linear(feat, c_dim)
                                      for _ in range(num_cls)])
         self.dropout_in = dropout_in
+        self.rates = (dropout_in, dropout_out)
         self.shape = (num_cls, c_dim)
 
-    def forward(self, style_flat, tokens, lengths):
+    def forward(self, style_flat, tokens, lengths, rng=None):
         """style_flat: [N, num_cls*c_dim]; tokens: [N, T] int; lengths: [N]."""
-        x = F.dropout(self.embed_tokens(tokens.long()), self.dropout_in,
-                      self.training)
+        x = dropout(self.embed_tokens(tokens.long()), self.dropout_in,
+                    self.training, rng)
         style_b = style_flat.float()[:, None, :].expand(-1, x.shape[1], -1)
         _, h, c = self.lstm(torch.cat([x, style_b], dim=-1), lengths)
         feats = torch.cat([torch.cat([h[l, 0], h[l, 1], c[l, 0], c[l, 1]], -1)
@@ -230,6 +244,14 @@ class Generator(nn.Module):
                        n_blk=3, norm="none", activ=c.activ)
         self.set_norm_stats(stats)
 
+    def set_dropout(self, on: bool) -> None:
+        """Dropout on (the config's rates) or off, whatever the mode."""
+        self.enc_style.p_map = self.enc_style.rate if on else 0.0
+        p_in, p_out = self.enc_txt.rates
+        self.enc_txt.dropout_in = p_in if on else 0.0
+        if self.enc_txt.lstm.num_layers > 1:
+            self.enc_txt.lstm.dropout = p_out if on else 0.0
+
     def set_norm_stats(self, stats: str) -> None:
         """How every norm forms its variance ("2pass" or "1pass")."""
         check_stats(stats)
@@ -241,37 +263,20 @@ class Generator(nn.Module):
         """NHWC in -> NCHW in channels_last memory, compute dtype."""
         return channels_last(x.permute(0, 3, 1, 2).to(self.dtype))
 
-    def encode(self, images):
+    def encode(self, images, rng=None):
         x = self._nchw(images)
-        mu, logvar = self.enc_style(x)
+        mu, logvar = self.enc_style(x, rng)
         content = self.enc_content(x)
         return content.permute(0, 2, 3, 1), mu, logvar
 
-    def encode_txt(self, style_flat, tokens, lengths):
-        return self.enc_txt(style_flat, tokens, lengths)
+    def encode_txt(self, style_flat, tokens, lengths, rng=None):
+        return self.enc_txt(style_flat, tokens, lengths, rng)
 
     def decode(self, content, style_flat):
         adain_params = self.mlp(style_flat.to(self.dtype))
         image, att = self.dec(self._nchw(content), adain_params)
         return (image.permute(0, 2, 3, 1),
                 None if att is None else att.permute(0, 2, 3, 1))
-
-
-def _init_dense(w: torch.Tensor, init_type: str, g: torch.Generator) -> None:
-    """The reference's `weights_init` (utils.py:234-254)."""
-    fan_in = w[0].numel()
-    if init_type == "gaussian":
-        nn.init.normal_(w, 0.0, 0.02, generator=g)
-    elif init_type == "xavier":
-        nn.init.xavier_normal_(w, gain=math.sqrt(2.0), generator=g)
-    elif init_type == "kaiming":
-        nn.init.normal_(w, 0.0, math.sqrt(2.0 / fan_in), generator=g)
-    elif init_type == "orthogonal":
-        nn.init.orthogonal_(w, gain=math.sqrt(2.0), generator=g)
-    elif init_type == "default":
-        nn.init.normal_(w, 0.0, math.sqrt(1.0 / fan_in), generator=g)
-    else:
-        raise ValueError(f"unsupported init: {init_type}")
 
 
 @torch.no_grad()
@@ -292,20 +297,35 @@ def init_weights(gen: Generator, init_type: str, seed: int) -> None:
         elif name.endswith(".gamma"):
             nn.init.uniform_(p, 0.0, 1.0, generator=g)
         elif name.endswith(".weight"):
-            _init_dense(p, init_type, g)
+            weights_init(p, init_type, g)
         else:
             p.zero_()
 
 
+def freeze_lstm_bias_hh(gen: Generator) -> None:
+    """The JAX LSTM has one bias per direction; the port's `nn.LSTM` has
+    `bias_ih` (= that bias) and `bias_hh`.  `bias_hh` stays zero and out of
+    every optimizer, or the effective bias would take each step twice."""
+    for name, p in gen.enc_txt.lstm.named_parameters():
+        if name.startswith("bias_hh"):
+            with torch.no_grad():
+                p.zero_()
+            p.requires_grad_(False)
+
+
 def build_generator(cfg: Config, vocab_size: int, device="cuda",
-                    seed: int = 0) -> Generator:
-    """The generator of `cfg` with random weights from `seed`, in eval
-    mode on `device` (the card unless the caller asks for the CPU).
+                    seed: int = 0, train: bool = False,
+                    embed_table: Optional[np.ndarray] = None) -> Generator:
+    """The generator of `cfg` with random weights from `seed` on `device`
+    (the card unless the caller asks for the CPU), in eval mode for serving
+    or, with `train`, in train mode (dropout on).
 
     Compute dtype from `cfg.compute_dtype`, variance form from
-    `cfg.norm_stats`.  `use_pallas`, `stem_pallas` and `parity_convs` pick
-    TPU code paths and change nothing here: on the card the norm kernels
-    always run, and the convolutions are plain ones."""
+    `cfg.norm_stats`.  `embed_table` ([vocab, embed_dim]) replaces the
+    random word embeddings (the trainer then keeps it frozen).  The LSTM's
+    `bias_hh` is frozen at zero.  `use_pallas`, `stem_pallas` and
+    `parity_convs` pick TPU code paths and change nothing here: on the card
+    the norm kernels always run, and the convolutions are plain ones."""
     dev = resolve_device(device)
     if cfg.norm_compute != "fp32":
         raise NotImplementedError(
@@ -314,4 +334,9 @@ def build_generator(cfg: Config, vocab_size: int, device="cuda",
     gen = Generator(cfg.gen, cfg.input_dim, vocab_size, dtype=dtype,
                     stats=cfg.norm_stats)
     init_weights(gen, cfg.init, seed)
-    return gen.to(dev).eval()
+    if embed_table is not None:
+        with torch.no_grad():
+            gen.enc_txt.embed_tokens.weight.copy_(torch.from_numpy(
+                np.array(embed_table, np.float32)))
+    freeze_lstm_bias_hh(gen)
+    return gen.to(dev).train(train)

@@ -6,13 +6,18 @@ casts to its compute dtype.  Module attribute names follow the reference
 torch model (`conv`, `norm.gamma`, `fc`, `model.{i}`), so a port
 `state_dict()` has the reference's names.
 
-In this slice: norms none, in, ln and adain; activations other than prelu.
+Norms none, in, ln and adain, and every activation but prelu, forward and
+backward (the norms are `torch.autograd.Function`s, `ops/norms.py`).
 Spectral norm, bn and PReLU come with a later slice and raise here.
+`weights_init` draws the reference's initial weights for the generator and
+the discriminator alike; `dropout` draws its mask from a given
+`torch.Generator`.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import math
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +48,36 @@ def activation(name: str, *, linear_block: bool = False) -> Callable:
         raise NotImplementedError(f"activation {name!r} is not in this slice "
                                   f"of the port ({sorted(table)})")
     return table[name]
+
+
+def weights_init(w: torch.Tensor, init_type: str, g: torch.Generator) -> None:
+    """Draw a conv or linear weight in place as the reference's
+    `weights_init` does (utils.py:234-254): gaussian(0, 0.02), xavier (gain
+    sqrt 2), kaiming (fan_in), orthogonal (gain sqrt 2) or the default
+    (fan_in, unit gain)."""
+    fan_in = w[0].numel()
+    if init_type == "gaussian":
+        nn.init.normal_(w, 0.0, 0.02, generator=g)
+    elif init_type == "xavier":
+        nn.init.xavier_normal_(w, gain=math.sqrt(2.0), generator=g)
+    elif init_type == "kaiming":
+        nn.init.normal_(w, 0.0, math.sqrt(2.0 / fan_in), generator=g)
+    elif init_type == "orthogonal":
+        nn.init.orthogonal_(w, gain=math.sqrt(2.0), generator=g)
+    elif init_type == "default":
+        nn.init.normal_(w, 0.0, math.sqrt(1.0 / fan_in), generator=g)
+    else:
+        raise ValueError(f"unsupported init: {init_type}")
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout whose keep mask is drawn from `rng` (a generator on
+    x's device; torch's default generator when None)."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=rng, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 def pad2d(x: torch.Tensor, padding: int, pad_type: str) -> torch.Tensor:

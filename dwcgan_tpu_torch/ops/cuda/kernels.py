@@ -1,12 +1,19 @@
-"""ctypes wrappers of the hand-written Hopper norm kernels (forward only).
+"""ctypes wrappers of the hand-written Hopper norm kernels, forward and
+backward.
 
 Each wrapper takes CUDA tensors only: an NCHW activation in channels_last
 memory (NHWC bytes), bf16 or fp32, and fp32 per-channel parameters.  It
 checks device, dtype, shape and layout and raises on anything else; it
-allocates the output and the fp32 workspace with `torch.empty`, launches on
+allocates its outputs and the fp32 workspace with `torch.empty`, launches on
 the current stream and raises if the launch failed.  It never falls back to
 PyTorch.  `LAUNCHES` counts the calls that launched each kernel, so a run
 can show that its main path went through them.
+
+A forward returns `(y, stats)`: `stats` is the fp32 [N, 2, C] tensor of
+each sample's mean and the factor that multiplies x - mean (1/sqrt(var+eps)
+per channel; the LayerNorm's 1/(std+eps) per sample, at channel 0).  The
+backward takes it back, so it never recomputes the moments.  Autograd is
+`ops/norms.py`'s business: these wrappers take and return plain tensors.
 
 The sources are `dwcgan_tpu_torch/csrc/norm_kernels.cu`; the library is
 built with nvcc at first use (`build.py`).
@@ -22,7 +29,8 @@ import torch
 from dwcgan_tpu_torch.ops.cuda import build
 
 LAUNCHES = {"instance_norm": 0, "adain": 0, "adain_residual": 0,
-            "layer_norm_ref": 0}
+            "layer_norm_ref": 0, "instance_norm_bwd": 0, "adain_bwd": 0,
+            "adain_residual_bwd": 0, "layer_norm_ref_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
@@ -31,12 +39,24 @@ _BLOCKS_PER_SM = 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, y, ws, n, hw, c, splits, dtype, two_pass, relu, stream
-    "dwc_instance_norm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, scale, bias, residual, y, ws, n, hw, c, splits, dtype, two_pass, relu, stream
-    "dwc_adain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, gamma, beta, y, ws, n, hw, c, splits, dtype, two_pass, stream
-    "dwc_layer_norm_ref": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, y, stats, ws, n, hw, c, splits, dtype, two_pass, relu, stream
+    "dwc_instance_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, scale, bias, residual, y, stats, ws, n, hw, c, splits, dtype,
+    # two_pass, relu, stream
+    "dwc_adain": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, gamma, beta, y, stats, ws, n, hw, c, splits, dtype, two_pass, stream
+    "dwc_layer_norm_ref": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, y (mask source or NULL), g, stats, dx, ws, n, hw, c, splits, dtype,
+    # stream
+    "dwc_instance_norm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, y, g, stats, scale, dx, dscale, dbias, ws, n, hw, c, splits, dtype,
+    # stream
+    "dwc_adain_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _P],
+    # x, g, stats, gamma, dx, dgamma, dbeta, ws, n, hw, c, splits, dtype,
+    # stream
+    "dwc_layer_norm_ref_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _P],
 }
 
 
@@ -71,10 +91,16 @@ def _check_activation(name: str, x: torch.Tensor) -> None:
                          f"(a multiple of {vec}, at most {vec * _THREADS})")
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: activation not 16-byte aligned")
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{name}: forward-only kernel; its backward comes with the "
-            "training slice (run under torch.inference_mode())")
+
+
+def _check_like(name: str, x: torch.Tensor, t: torch.Tensor) -> None:
+    """`t` (an incoming gradient, a saved output, a residual) must be laid
+    out as the activation `x` is."""
+    _check_activation(name, t)
+    if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+        raise ValueError(f"{name}: tensors must match the activation in shape, "
+                         f"dtype and device: {tuple(t.shape)} {t.dtype} "
+                         f"{t.device} vs {tuple(x.shape)} {x.dtype} {x.device}")
 
 
 def _check_param(name: str, x: torch.Tensor, p: torch.Tensor, shape) -> None:
@@ -83,8 +109,6 @@ def _check_param(name: str, x: torch.Tensor, p: torch.Tensor, shape) -> None:
         raise ValueError(f"{name}: parameter must be contiguous float32 "
                          f"{tuple(shape)} on {x.device}, got {p.dtype} "
                          f"{tuple(p.shape)} on {p.device}")
-    if p.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(f"{name}: forward-only kernel")
 
 
 def _geometry(x: torch.Tensor):
@@ -97,61 +121,137 @@ def _geometry(x: torch.Tensor):
     return n, hw, c, max(1, min(target, -(-hw // lanes)))
 
 
-def _launch(name: str, fn, x: torch.Tensor, args_before, args_after):
-    n, hw, c, splits = _geometry(x)
-    y = torch.empty_like(x, memory_format=torch.channels_last)
-    ws = torch.empty(2 * n * splits * c + 2 * n * c, dtype=torch.float32,
-                     device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), *args_before, y.data_ptr(), ws.data_ptr(),
-                 n, hw, c, splits, _DTYPE_CODE[x.dtype], *args_after, stream)
+def _f32(*shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
+def _run(name: str, fn, device, *args) -> None:
+    """Launch `fn(*args, stream)` on `device`'s current stream; count it."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
-    return y
 
 
-def instance_norm(x: torch.Tensor, relu: bool = False,
-                  two_pass: bool = True) -> torch.Tensor:
-    """Per-(n, c) instance norm over H*W, no affine, optional fused ReLU."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(name: str, fn, x: torch.Tensor, args_before, args_after):
+    n, hw, c, splits = _geometry(x)
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    stats = _f32(n, 2, c, like=x)
+    ws = _f32(2 * n * splits * c, like=x)
+    _run(name, fn, x.device, x.data_ptr(), *args_before, y.data_ptr(),
+         stats.data_ptr(), ws.data_ptr(), n, hw, c, splits,
+         _DTYPE_CODE[x.dtype], *args_after)
+    return y, stats
+
+
+def instance_norm(x: torch.Tensor, relu: bool = False, two_pass: bool = True):
+    """Per-(n, c) instance norm over H*W, no affine, optional fused ReLU.
+    Returns (y, stats)."""
     _check_activation("instance_norm", x)
-    return _launch("instance_norm", _lib().dwc_instance_norm, x, (),
-                   (int(two_pass), int(relu)))
+    return _forward("instance_norm", _lib().dwc_instance_norm, x, (),
+                    (int(two_pass), int(relu)))
 
 
 def adain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-          relu: bool = False, two_pass: bool = True) -> torch.Tensor:
-    """IN(x) * scale[n, c] + bias[n, c], optional fused ReLU."""
+          relu: bool = False, two_pass: bool = True):
+    """IN(x) * scale[n, c] + bias[n, c], optional fused ReLU.
+    Returns (y, stats)."""
     _check_activation("adain", x)
     for p in (scale, bias):
         _check_param("adain", x, p, x.shape[:2])
-    return _launch("adain", _lib().dwc_adain, x,
-                   (scale.data_ptr(), bias.data_ptr(), None),
-                   (int(two_pass), int(relu)))
+    return _forward("adain", _lib().dwc_adain, x,
+                    (scale.data_ptr(), bias.data_ptr(), None),
+                    (int(two_pass), int(relu)))
 
 
 def adain_residual(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
-                   bias: torch.Tensor, two_pass: bool = True) -> torch.Tensor:
-    """x + AdaIN(y): the add is fused into the kernel's store."""
+                   bias: torch.Tensor, two_pass: bool = True):
+    """x + AdaIN(y): the add is fused into the kernel's store.  Returns
+    (out, stats of y)."""
     _check_activation("adain_residual", y)
-    _check_activation("adain_residual", x)
-    if x.shape != y.shape or x.dtype != y.dtype or x.device != y.device:
-        raise ValueError("adain_residual: x and y must match in shape, dtype "
-                         "and device")
+    _check_like("adain_residual", y, x)
     for p in (scale, bias):
         _check_param("adain_residual", y, p, y.shape[:2])
-    return _launch("adain_residual", _lib().dwc_adain, y,
-                   (scale.data_ptr(), bias.data_ptr(), x.data_ptr()),
-                   (int(two_pass), 0))
+    return _forward("adain_residual", _lib().dwc_adain, y,
+                    (scale.data_ptr(), bias.data_ptr(), x.data_ptr()),
+                    (int(two_pass), 0))
 
 
 def layer_norm_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                   two_pass: bool = True) -> torch.Tensor:
+                   two_pass: bool = True):
     """Reference LayerNorm: per-sample mean and unbiased std over C*H*W,
-    (x - mean) / (std + eps) * gamma[c] + beta[c]."""
+    (x - mean) / (std + eps) * gamma[c] + beta[c].  Returns (y, stats)."""
     _check_activation("layer_norm_ref", x)
     for p in (gamma, beta):
         _check_param("layer_norm_ref", x, p, x.shape[1:2])
-    return _launch("layer_norm_ref", _lib().dwc_layer_norm_ref, x,
-                   (gamma.data_ptr(), beta.data_ptr()), (int(two_pass),))
+    return _forward("layer_norm_ref", _lib().dwc_layer_norm_ref, x,
+                    (gamma.data_ptr(), beta.data_ptr()), (int(two_pass),))
+
+
+# ------------------------------------------------------------------ backward
+
+def _check_stats(name: str, x: torch.Tensor, stats: torch.Tensor) -> None:
+    _check_param(name, x, stats, (x.shape[0], 2, x.shape[1]))
+
+
+def _bwd_common(name: str, x, g, stats, y=None):
+    _check_activation(name, x)
+    _check_like(name, x, g)
+    if y is not None:
+        _check_like(name, x, y)
+    _check_stats(name, x, stats)
+    n, hw, c, splits = _geometry(x)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    ws = _f32(2 * n * splits * c + 2 * n * c + 2 * n, like=x)
+    return n, hw, c, splits, dx, ws
+
+
+def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+                      y: torch.Tensor = None) -> torch.Tensor:
+    """dx of `instance_norm` at x, given the incoming gradient g and the
+    forward's stats; `y`, the forward output, when it fused a ReLU (the
+    mask is y > 0)."""
+    name = "instance_norm_bwd"
+    n, hw, c, splits, dx, ws = _bwd_common(name, x, g, stats, y)
+    _run(name, _lib().dwc_instance_norm_bwd, x.device, x.data_ptr(), _ptr(y),
+         g.data_ptr(), stats.data_ptr(), dx.data_ptr(), ws.data_ptr(), n, hw,
+         c, splits, _DTYPE_CODE[x.dtype])
+    return dx
+
+
+def adain_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+              scale: torch.Tensor, y: torch.Tensor = None,
+              residual: bool = False):
+    """(dx, dscale, dbias) of AdaIN at x (the ReLU mask from `y` when the
+    forward fused one).  `residual`: the call is the backward of
+    `adain_residual` (counted apart; its x gradient is g itself)."""
+    name = "adain_residual_bwd" if residual else "adain_bwd"
+    n, hw, c, splits, dx, ws = _bwd_common(name, x, g, stats, y)
+    _check_param(name, x, scale, x.shape[:2])
+    dscale, dbias = _f32(n, c, like=x), _f32(n, c, like=x)
+    _run(name, _lib().dwc_adain_bwd, x.device, x.data_ptr(), _ptr(y),
+         g.data_ptr(), stats.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+         dscale.data_ptr(), dbias.data_ptr(), ws.data_ptr(), n, hw, c, splits,
+         _DTYPE_CODE[x.dtype])
+    return dx, dscale, dbias
+
+
+def layer_norm_ref_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+                       gamma: torch.Tensor):
+    """(dx, dgamma, dbeta) of the reference LayerNorm; dgamma and dbeta are
+    summed over the batch."""
+    name = "layer_norm_ref_bwd"
+    n, hw, c, splits, dx, ws = _bwd_common(name, x, g, stats)
+    _check_param(name, x, gamma, x.shape[1:2])
+    dgamma, dbeta = _f32(c, like=x), _f32(c, like=x)
+    _run(name, _lib().dwc_layer_norm_ref_bwd, x.device, x.data_ptr(),
+         g.data_ptr(), stats.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+         dgamma.data_ptr(), dbeta.data_ptr(), ws.data_ptr(), n, hw, c, splits,
+         _DTYPE_CODE[x.dtype])
+    return dx, dgamma, dbeta

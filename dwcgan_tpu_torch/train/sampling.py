@@ -1,15 +1,35 @@
-"""Attention blending (the counterpart of `blend_attention`,
-`dwcgan_tpu/train/sampling.py:44-57`)."""
+"""Style sampling and attention blending (the counterparts of
+`dwcgan_tpu/train/sampling.py:14-26, 44-57`)."""
 
 from __future__ import annotations
 
+from typing import Optional
 
-def blend_attention(img, att, x_real):
-    """Attention-masked edit: img*att + x_real*(1-att) (solver.py:158-170);
-    the raw decode when the model has no attention head.  Returns fp32.
-    (Serving always blends; the training step's warm-up gate, `att_on`,
-    comes with the training slice.)"""
-    if att is None:
+import torch
+
+
+def sample_style(comp_means: torch.Tensor, c_dim: int, stddev: float,
+                 eps: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One style per sample from the attribute GMM: each attribute's c_dim
+    block is N(mean_k, stddev), attribute-major -> [N, K * c_dim] fp32.
+
+    The standard-normal draws are `eps` ([N, K, c_dim]) when given (tests
+    inject the numbers JAX drew), else they come from `generator` (on the
+    device of `comp_means`)."""
+    n, k = comp_means.shape
+    if eps is None:
+        eps = torch.randn((n, k, c_dim), generator=generator,
+                          device=comp_means.device)
+    z = comp_means.float()[:, :, None] + stddev * eps.float()
+    return z.reshape(n, k * c_dim)
+
+
+def blend_attention(img, att, x_real, att_on: bool = True):
+    """Attention-masked edit: img*att + x_real*(1-att) (solver.py:158-170)
+    when the model has an attention head and `att_on` (the training step's
+    warm-up gate); the raw decode otherwise.  Returns fp32."""
+    if att is None or not att_on:
         return img.float()
     att = att.float()
     return img.float() * att + x_real.float() * (1.0 - att)

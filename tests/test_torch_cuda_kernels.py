@@ -99,8 +99,12 @@ def test_wrappers_refuse_what_they_do_not_take(card):
     s = torch.ones(2, 64, device=card)
     with pytest.raises(ValueError, match="parameter"):
         kernels.adain(x, s.double(), s)
-    with pytest.raises(NotImplementedError):
-        norms.instance_norm(x.clone().requires_grad_())
+    g = torch.zeros_like(x)
+    st = kernels.instance_norm(x)[1]
+    with pytest.raises(ValueError, match="match"):
+        kernels.instance_norm_bwd(x, g[:1].contiguous(memory_format=torch.channels_last), st)
+    with pytest.raises(ValueError, match="parameter"):
+        kernels.instance_norm_bwd(x, g, st[:1])
 
 
 def test_generator_on_the_card_matches_the_cpu(card):
@@ -121,3 +125,49 @@ def test_generator_on_the_card_matches_the_cpu(card):
         torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=0)
     finally:
         torch.backends.cudnn.allow_tf32 = True
+
+
+BWD = {"instance_norm": "instance_norm_bwd", "adain": "adain_bwd",
+       "adain_residual": "adain_residual_bwd",
+       "layer_norm_ref": "layer_norm_ref_bwd"}
+
+
+def _plain_grads(op, args, relu, stats, y, g):
+    """The plain backward of `op` at fp32 copies of `args`, with the ReLU
+    mask taken from the kernel's forward output `y` (as the kernel does)."""
+    a = [t.float() for t in args]
+    mask = y.float() if relu else None
+    if op == "instance_norm":
+        return (norms.instance_norm_bwd_plain(a[0], g.float(), mask, stats),)
+    if op == "adain":
+        return norms.adain_bwd_plain(a[0], a[1], g.float(), mask, stats)
+    if op == "adain_residual":
+        dy, ds, db = norms.adain_bwd_plain(a[1], a[2], g.float(), None, stats)
+        return g.float(), dy, ds, db
+    return norms.layer_norm_ref_bwd_plain(a[0], a[1], g.float(), stats)
+
+
+@pytest.mark.parametrize("stats", ["2pass", "1pass"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("op,relu", [(op, False) for op in OPS]
+                         + [("instance_norm", True), ("adain", True)])
+def test_backward_kernel_matches_plain(card, op, relu, shape, dtype, stats):
+    """Gradients through the public op (the backward kernel) against the
+    plain backward: fp32 within 1e-4 of the largest gradient of each
+    output (summation order only), bf16 within 2 % of it (the incoming
+    gradient and dx round to bf16; the plain side is fp32 throughout)."""
+    args = [a.detach().requires_grad_() for a in _args(op, shape, dtype, card, 1)]
+    out = _call(PUBLIC, op, args, relu, stats)
+    g = torch.randn(out.shape, device=card).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    before = kernels.LAUNCHES[BWD[op]]
+    got = torch.autograd.grad(out, args, g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[BWD[op]] == before + 1
+    want = _plain_grads(op, args, relu, stats, out.detach(), g)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, w in zip(got, want):
+        scale = float(w.abs().max())
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= rel * scale + 1e-6, (err, scale)

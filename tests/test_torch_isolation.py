@@ -21,12 +21,13 @@ import importlib, pkgutil, sys
 import dwcgan_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dwcgan_tpu_torch.__path__,
                                                "dwcgan_tpu_torch.")]
-for name in names + ["dwcgan_tpu_torch.cli.translate", "chip_smoke"]:
+for name in names + ["dwcgan_tpu_torch.cli.translate", "dwcgan_tpu_torch.cli.train",
+                     "dwcgan_tpu_torch.train.step", "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print(len(names), "modules;", "loaded:", bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+sys.exit(1 if bad or len(names) < 30 else 0)
 """.format(forbidden=set(FORBIDDEN))
 
 
@@ -73,6 +74,24 @@ def test_build_generator_defaults_to_the_card(no_card):
     from dwcgan_tpu_torch.models.generator import build_generator
     with pytest.raises(RuntimeError, match="cuda"):
         build_generator(load_config(str(ROOT / "configs/smoke.yaml")), 102)
+
+
+def test_train_cli_defaults_to_the_card(no_card):
+    from dwcgan_tpu_torch.cli import train
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--config", str(ROOT / "configs/smoke.yaml"),
+                    "--synthetic_data", "--max_steps", "1"])
+
+
+def test_trainer_parts_default_to_the_card(no_card):
+    from dwcgan_tpu_torch.config import load_config
+    from dwcgan_tpu_torch.models.discriminator import build_discriminator
+    from dwcgan_tpu_torch.train.state import create_train_state
+    cfg = load_config(str(ROOT / "configs/smoke.yaml"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_discriminator(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_train_state(cfg, 102)
 
 
 def test_translate_cli_defaults_to_the_card(no_card, tmp_path):
