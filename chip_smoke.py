@@ -40,10 +40,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    losses, parameters and EMA moved; 3 warm-up steps, then 12 steps timed
    by CUDA events: median, min and max ms per step, images/s, peak memory.
 
-The last lines are the `kernels` JSON (seven kernels: the four forward
-ones, then the instance-norm, AdaIN and LayerNorm backwards; a forward
-kernel's times and `launches` are per served batch, with `launches_train`
-its launches per training step), the
+8. stem kernels: the fused 7x7 stem forward and backward at every stem
+   site of the stem-on paths (content: IN + ReLU, style: ReLU; [32, 3, 128,
+   128] serving, [16, ...] and [48, ...] training, C 64, reflect; the
+   backward without dx at 16, with it at 48), fp32 and bf16, both stats
+   modes where there is a norm, against the plain versions on the card (y
+   as phase 2, dx / dW / db as phase 5, the ReLU mask from the kernel's own
+   output), then the three pad types at one small ragged shape; kernel,
+   eager, plain and library times (the library: cuDNN's `F.conv2d` with
+   bias on the reflect-padded image and its backward, without the pad, the
+   norm and the ReLU) beside the bound (bytes or operations);
+9. serving with `stem_pallas` on: fp32 card vs CPU as phase 3, then bf16 at
+   batch 32 with exactly 2 stem, 10 IN, 4 AdaIN, 4 AdaIN-residual and 2
+   LayerNorm launches per batch, timed as phase 4;
+10. training with `stem_pallas` on: the fp32 step card vs CPU as phase 6,
+   then the bf16 step at batch 16 with exact launches per step (forward
+   stem 4, IN 22, AdaIN 8 / 8, LayerNorm 4; backward stem 4, IN 21, 8 / 8 /
+   4), timed as phase 7; then the stem-on and stem-off figures of this run
+   side by side;
+11. the bf16 text encoder (`encode_txt`, batch 32) on the card against the
+   CPU's, which rounds as the JAX scan does: within a quarter of the
+   encoder's fp32-vs-bf16 gap; cuDNN's fused bf16 LSTM measured beside it.
+
+The last lines are the `kernels` JSON (nine kernels: the four forward
+ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
+forward and backward; a forward kernel's times and `launches` are per
+served batch, with `launches_train` its launches per training step), the
 nvidia-smi line and `{"ok": true, "device": {...}}`.  Without a card it
 exits 1 and prints no result.
 """
@@ -65,7 +87,7 @@ from dwcgan_tpu_torch.cli.train import (build_trainer, build_vgg_loss,
 from dwcgan_tpu_torch.cli.translate import synthetic_requests, translate_batch
 from dwcgan_tpu_torch.config import load_config
 from dwcgan_tpu_torch.models.generator import build_generator
-from dwcgan_tpu_torch.ops import norms
+from dwcgan_tpu_torch.ops import norms, stem
 from dwcgan_tpu_torch.ops.cuda import build, kernels
 from dwcgan_tpu_torch.text.vocab import Vocab, encode_commands
 from dwcgan_tpu_torch.train.sampler import make_infer_fn
@@ -100,6 +122,9 @@ EXPECTED_LAUNCHES = {"instance_norm": 11, "adain": 4, "adain_residual": 4,
                      "layer_norm_ref": 2}
 # serving launches no backward kernel
 SERVE_LAUNCHES = {k: EXPECTED_LAUNCHES.get(k, 0) for k in kernels.LAUNCHES}
+# with `stem_pallas` on, both stems are one stem call each and the content
+# stem's instance norm moves into it
+STEM_SERVE_LAUNCHES = {**SERVE_LAUNCHES, "stem_conv7": 2, "instance_norm": 10}
 REPLACES = {
     "instance_norm": "dwcgan_tpu/ops/pallas/norm_kernels.py:106",
     "adain": "dwcgan_tpu/ops/pallas/norm_kernels.py:160",
@@ -270,6 +295,14 @@ def check_forward(kernel, shape, relu, dtype, stats, args, out):
     """The forward kernel's `out` against its plain version in fp32: max abs
     err, or AssertionError outside the tolerance."""
     ref32 = run_plain(kernel, tuple(a.float() for a in args), relu, stats)
+    return check_close(f"{kernel} {shape} {dtype} {stats} relu={relu}", out,
+                       ref32, dtype)
+
+
+def check_close(label, out, ref32, dtype):
+    """`out` (in `dtype`) against the fp32 plain result `ref32`: fp32 within
+    FP32_ATOL; bf16 within BF16_ULPS ulps of ref32 rounded to bf16, plus that
+    atol.  Returns the max abs err; AssertionError outside the tolerance."""
     if dtype == torch.float32:
         err = (out - ref32).abs()
         tol = torch.full_like(err, FP32_ATOL)
@@ -282,9 +315,8 @@ def check_forward(kernel, shape, relu, dtype, stats, args, out):
     bad = int((err > tol).sum())
     max_err = float(err.max())
     if not torch.isfinite(out).all() or bad:
-        raise AssertionError(
-            f"{kernel} {shape} {dtype} {stats} relu={relu}: {bad} elements "
-            f"outside tolerance, max abs err {max_err:.3e}")
+        raise AssertionError(f"{label}: {bad} elements outside tolerance, max "
+                             f"abs err {max_err:.3e}")
     return max_err
 
 
@@ -349,7 +381,13 @@ BWD_SITES = tuple(
 EXPECTED_TRAIN_LAUNCHES = {
     "instance_norm": 24, "adain": 8, "adain_residual": 8, "layer_norm_ref": 4,
     "instance_norm_bwd": 23, "adain_bwd": 8, "adain_residual_bwd": 8,
-    "layer_norm_ref_bwd": 4}
+    "layer_norm_ref_bwd": 4, "stem_conv7": 0, "stem_conv7_bwd": 0}
+# per step with `stem_pallas` on: the encoder runs at n and at 3n, two stems
+# each; the content stem's instance norm, forward and backward, moves into
+# the stem at both
+STEM_TRAIN_LAUNCHES = {**EXPECTED_TRAIN_LAUNCHES, "stem_conv7": 4,
+                       "stem_conv7_bwd": 4, "instance_norm": 22,
+                       "instance_norm_bwd": 21}
 BWD_REPLACES = {
     "instance_norm_bwd": "dwcgan_tpu/ops/pallas/norm_kernels.py:125",
     "adain_bwd": "dwcgan_tpu/ops/pallas/norm_kernels.py:186",
@@ -480,6 +518,204 @@ def phase_backward():
     return rows
 
 
+# ---------------------------------------------------------------- phase 8
+
+STEM_C, STEM_HW = 64, 128     # flagship gen dim and image size
+# The stem call sites of the stem-on paths: (encoder, batch, norm, act,
+# calls per served batch, calls per training step, backward needs dx): the
+# encoder runs at 32 when serving; when training at n (real images, no
+# image gradient) and at 3n (generated images, dx needed)
+STEM_SITES = (
+    ("content", BATCH, "in", "relu", 1, 0, None),
+    ("style", BATCH, "none", "relu", 1, 0, None),
+    ("content", TRAIN_BATCH, "in", "relu", 0, 1, False),
+    ("style", TRAIN_BATCH, "none", "relu", 0, 1, False),
+    ("content", 3 * TRAIN_BATCH, "in", "relu", 0, 1, True),
+    ("style", 3 * TRAIN_BATCH, "none", "relu", 0, 1, True),
+)
+STEM_PAD_SHAPE = (2, 3, 20, 44)   # the pad-type checks: ragged against 8 x 32 tiles
+STEM_REPLACES = {
+    "stem_conv7": "dwcgan_tpu/ops/pallas/stem_kernels.py:252",
+    "stem_conv7_bwd": "dwcgan_tpu/ops/pallas/stem_kernels.py:154",
+}
+STEM_SOURCE = "dwcgan_tpu_torch/csrc/stem_kernels.cu"
+BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense tensor-core bf16
+
+
+def stem_inputs(n, c, hw, dtype, g):
+    """An image in [-1, 1] (NCHW, channels_last), kaiming-scaled fp32
+    weights, a small bias, and an incoming gradient of the output's shape."""
+    dev = "cuda"
+    x = (2 * torch.rand(n, 3, hw, hw, generator=g, device=dev) - 1).to(dtype)
+    w = torch.randn(c, 3, 7, 7, generator=g, device=dev) * math.sqrt(2 / 147)
+    b = 0.1 * torch.randn(c, generator=g, device=dev)
+    gr = torch.randn(n, c, hw, hw, generator=g, device=dev).to(dtype)
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)
+    return cl(x), w, b, cl(gr)
+
+
+def nhwc(t):
+    return t.permute(0, 2, 3, 1)
+
+
+def stem_bound(shape, c, dtype, norm, relu, backward, need_dx):
+    """(ms, by) of one stem call.  Bytes: the image (and, backward, the
+    incoming gradient) read once, the output (y; backward dx) written once.
+    Operations: 2 * 148 * C per output pixel for the conv; the backward
+    recomputes it (the mask and x-hat need it) unless there is neither norm
+    nor ReLU, and does 2 * 148 * C for dW and db and 2 * 147 * C for dX;
+    over the bf16 tensor-core rate for bf16 data, the fp32 rate for fp32."""
+    n, _, h, w = shape
+    px = n * h * w
+    size = torch.finfo(dtype).bits // 8
+    if backward:
+        nbytes = (3 + c) * px * size + (3 * px * size if need_dx else 0)
+        ops = 2 * 148 * c * px * ((norm == "in" or relu) + 1) \
+            + (2 * 147 * c * px if need_dx else 0) + 11 * c * px * (norm == "in")
+    else:
+        nbytes = (3 + c) * px * size
+        ops = 2 * 148 * c * px + 8 * c * px * (norm == "in")
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_grads(label, got, want, dtype):
+    """dx (or None), dw, db against the plain backward: within BWD_FP32_REL
+    (fp32) or BWD_BF16_REL (bf16) of each gradient's largest magnitude; db,
+    the last row of the one [148, C] weight gradient, against that
+    matrix's.  Returns (max abs err, max relative err)."""
+    rel = BWD_FP32_REL if dtype == torch.float32 else BWD_BF16_REL
+    wscale = max(float(want[1].abs().max()), float(want[2].abs().max()))
+    max_err = max_rel = 0.0
+    for name, a, b in zip(("dx", "dw", "db"), got, want):
+        if a is None and b is None:
+            continue
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label} {name}: not finite")
+        scale = float(b.abs().max()) if name == "dx" else wscale
+        err = float((a.float() - b.float()).abs().max())
+        max_err, max_rel = max(max_err, err), max(max_rel, err / max(scale, 1e-30))
+        if err > rel * scale + 1e-6:
+            raise AssertionError(f"{label} {name}: max abs err {err:.3e} vs "
+                                 f"largest {scale:.3e}")
+    return max_err, max_rel
+
+
+def check_stem(shape, c, norm, act, pad, dtype, stats, g, need_dx):
+    """The stem forward kernel against its plain version and, unless
+    `need_dx` is None, the backward kernel too.  Returns the inputs, outputs
+    and errors for the timing."""
+    x, w, b, gr = stem_inputs(shape[0], c, shape[2], dtype, g)
+    label = f"stem {shape} C{c} {norm}/{act} {pad} {dtype} {stats}"
+    w2p = stem.pack_weights(w, b, dtype)
+    y, st = kernels.stem_conv7(x, w2p, norm, act, pad, stats)
+    torch.cuda.synchronize()
+    ref = stem.stem_conv7_plain(nhwc(x), w, b, norm, act, pad, stats)
+    fwd_err = check_close(label, nhwc(y), ref.float(), dtype)
+    out = dict(x=x, w=w, b=b, gr=gr, w2p=w2p, y=y, st=st, fwd_err=fwd_err)
+    if need_dx is None:
+        return out
+    got = kernels.stem_conv7_bwd(x, w2p, gr, st, norm, act, pad, need_dx)
+    torch.cuda.synchronize()
+    # the ReLU mask from the kernel's own output, as phase 5 does
+    want = stem.stem_conv7_bwd_plain(nhwc(x), w, b, nhwc(gr), norm, act, pad,
+                                     stats, need_dx, out=nhwc(y))
+    got = (None if got[0] is None else nhwc(got[0]),) + tuple(got[1:])
+    out["bwd_err"], out["bwd_rel"] = check_grads(label, got, want, dtype)
+    return out
+
+
+def time_stem(site, dtype, stats, t):
+    """Kernel, eager, plain and library times of the forward (and at a
+    training site the backward) on copies of the inputs (cold L2)."""
+    name, n, norm, act, _, _, need_dx = site
+    x, w, b, gr, w2p, y, st = (t[k] for k in ("x", "w", "b", "gr", "w2p", "y", "st"))
+    shape = tuple(x.shape)
+    relu = act == "relu"
+    copies = max(1, math.ceil(COLD_L2_BYTES / (x.numel() * x.element_size())))
+    xs = [x] + [x.clone(memory_format=torch.preserve_format) for _ in range(copies - 1)]
+    pick = lambda i: xs[i % len(xs)]
+    fwd = lambda i: kernels.stem_conv7(pick(i), w2p, norm, act, "reflect", stats)
+    xp = [F.pad(xi.float(), (3,) * 4, mode="reflect").to(dtype).contiguous(
+        memory_format=torch.channels_last) for xi in xs]
+    wl, bl = w.to(dtype), b.to(dtype)
+    rows = [dict(kernel="stem_conv7", site=name, shape=list(shape), c=STEM_C,
+                 norm=norm, act=act, dtype=str(dtype).replace("torch.", ""),
+                 stats=stats, max_abs_err=t["fwd_err"], ms=device_ms(fwd),
+                 eager_ms=time_ms(fwd),
+                 plain_ms=device_ms(lambda i: stem.stem_conv7_plain(
+                     nhwc(pick(i)), w, b, norm, act, "reflect", stats)),
+                 library_ms=device_ms(lambda i: F.conv2d(xp[i % len(xp)], wl, bl)),
+                 **dict(zip(("bound_ms", "bound_by"), stem_bound(
+                     shape, STEM_C, dtype, norm, relu, False, False))))]
+    if need_dx is None:
+        return rows
+    in_bytes = (x.numel() + gr.numel()) * x.element_size()
+    copies = max(1, math.ceil(COLD_L2_BYTES / in_bytes))
+    cp = [(x, gr, y)] + [tuple(u.clone(memory_format=torch.preserve_format)
+                               for u in (x, gr, y)) for _ in range(copies - 1)]
+    bwd = lambda i: kernels.stem_conv7_bwd(cp[i % copies][0], w2p, cp[i % copies][1],
+                                           st, norm, act, "reflect", need_dx)
+    plain = lambda i: stem.stem_conv7_bwd_plain(
+        nhwc(cp[i % copies][0]), w, b, nhwc(cp[i % copies][1]), norm, act,
+        "reflect", stats, need_dx, out=nhwc(cp[i % copies][2]))
+    # the library: cuDNN's conv backward on the padded image (dx of the
+    # padded image when the path needs dx; dW and db always)
+    graphs = []
+    for i in range(copies):
+        xr = xp[i % len(xp)].detach().requires_grad_(need_dx)
+        wr, br = wl.detach().requires_grad_(), bl.detach().requires_grad_()
+        graphs.append((F.conv2d(xr, wr, br), (xr, wr, br) if need_dx else (wr, br),
+                       cp[i][1]))
+    lib = lambda i: torch.autograd.grad(graphs[i % copies][0], graphs[i % copies][1],
+                                        graphs[i % copies][2], retain_graph=True)
+    rows.append(dict(
+        kernel="stem_conv7_bwd", site=name, shape=list(shape), c=STEM_C, norm=norm,
+        act=act, dtype=str(dtype).replace("torch.", ""), stats=stats,
+        need_dx=need_dx, max_abs_err=t["bwd_err"], max_rel_err=t["bwd_rel"],
+        ms=device_ms(bwd), eager_ms=time_ms(bwd), plain_ms=device_ms(plain),
+        library_ms=time_ms(lib),
+        **dict(zip(("bound_ms", "bound_by"), stem_bound(
+            shape, STEM_C, dtype, norm, relu, True, need_dx)))))
+    del graphs
+    return rows
+
+
+def phase_stem():
+    """Phase 8: both stem kernels at every stem site of the stem-on paths,
+    fp32 and bf16, both stats modes where there is a norm; then the three
+    pad types at one small shape.  TF32 off for the plain and library runs."""
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    for site in STEM_SITES:
+        name, n, norm, act, per_batch, per_step, need_dx = site
+        for dtype in (torch.float32, torch.bfloat16):
+            for stats in (("1pass", "2pass") if norm == "in" else ("1pass",)):
+                t = check_stem((n, 3, STEM_HW, STEM_HW), STEM_C, norm, act,
+                               "reflect", dtype, stats, g, need_dx)
+                for row in time_stem(site, dtype, stats, t):
+                    row["calls_per_batch"] = per_batch if row["kernel"] == "stem_conv7" else 0
+                    row["calls_per_step"] = per_step
+                    rows.append(row)
+                    log("stem_check " + json.dumps(row))
+                del t
+        torch.cuda.empty_cache()
+    for pad in ("reflect", "replicate", "zero"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for norm, act in (("in", "relu"), ("none", "relu")):
+                t = check_stem(STEM_PAD_SHAPE, STEM_C, norm, act, pad, dtype,
+                               "1pass", g, True)
+                log("stem_pad_check " + json.dumps(dict(
+                    shape=list(STEM_PAD_SHAPE), c=STEM_C, pad=pad, norm=norm,
+                    act=act, dtype=str(dtype).replace("torch.", ""),
+                    fwd_max_abs_err=t["fwd_err"], bwd_max_abs_err=t["bwd_err"],
+                    bwd_max_rel_err=t["bwd_rel"])))
+    torch.backends.cudnn.allow_tf32 = True
+    return rows
+
+
 # ---------------------------------------------------------------- phases 6, 7
 
 def _draws(cfg, n, seed):
@@ -489,14 +725,15 @@ def _draws(cfg, n, seed):
             "style2": torch.randn(shape, generator=g)}
 
 
-def phase_step_fp32():
+def phase_step_fp32(stem=False):
     """One fp32 step on the card against the same step on the CPU.  Both
     trainers draw their weights from the same seed on the CPU's generator,
-    so they start identical; dropout is off and the style draws are given."""
+    so they start identical; dropout is off and the style draws are given.
+    `stem`: the config's `stem_pallas` on (phase 10)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(str(CONFIG))
-    cfg.compute_dtype, cfg.batch_size = "float32", 2
+    cfg.compute_dtype, cfg.batch_size, cfg.stem_pallas = "float32", 2, stem
     results, secs = [], []
     for dev in ("cpu", "cuda"):
         state, _, _ = build_trainer(cfg, dev, seed=SEED)
@@ -514,7 +751,8 @@ def phase_step_fp32():
     worst = max(abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu)
     bad = {k: (cpu[k], gpu[k]) for k in cpu
            if abs(gpu[k] - cpu[k]) > STEP_RTOL * abs(cpu[k]) + 1e-6}
-    log(f"step_fp32: flagship width, batch 2, VGG on, every metric card vs CPU: "
+    log(f"step_fp32: stem_pallas {stem}, flagship width, batch 2, VGG on, "
+        f"every metric card vs CPU: "
         f"worst relative diff {worst:.3e} (rtol {STEP_RTOL}); CPU step "
         f"{secs[0]:.1f} s, card step (first, cold) {secs[1]:.1f} s; metrics "
         + json.dumps({k: [cpu[k], gpu[k]] for k in sorted(cpu)}))
@@ -523,9 +761,12 @@ def phase_step_fp32():
     return worst
 
 
-def phase_train_bf16(card):
-    """The flagship step through cli/train.py's trainer."""
+def phase_train_bf16(card, stem=False):
+    """The flagship step through cli/train.py's trainer (`stem`: with
+    `stem_pallas` on, phase 10).  Returns (launches per step, timing)."""
     cfg = load_config(str(CONFIG))
+    cfg.stem_pallas = stem
+    expected = STEM_TRAIN_LAUNCHES if stem else EXPECTED_TRAIN_LAUNCHES
     dev = torch.device("cuda")
     state, step, _ = build_trainer(cfg, dev, seed=SEED)
     batches = synthetic_batches(cfg, dev, seed=SEED + 9)
@@ -540,10 +781,11 @@ def phase_train_bf16(card):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     metrics = {k: float(v) for k, v in m.items()}
-    log(f"train_bf16: {cfg.compute_dtype}, norm_stats {cfg.norm_stats}, batch "
-        f"{cfg.batch_size}, vgg_w {cfg.vgg_w}, launches per step {launches}")
-    if launches != EXPECTED_TRAIN_LAUNCHES:
-        raise AssertionError(f"launches {launches} != {EXPECTED_TRAIN_LAUNCHES}")
+    log(f"train_bf16: stem_pallas {stem}, {cfg.compute_dtype}, norm_stats "
+        f"{cfg.norm_stats}, batch {cfg.batch_size}, vgg_w {cfg.vgg_w}, launches "
+        f"per step {launches}")
+    if launches != expected:
+        raise AssertionError(f"launches {launches} != {expected}")
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite metrics {metrics}")
     moved = lambda now, before: max(float((a.detach() - b).abs().max())
@@ -565,21 +807,90 @@ def phase_train_bf16(card):
     peak = torch.cuda.max_memory_allocated()
     ev = sorted(times)
     med = ev[len(ev) // 2]
-    log(f"train_bf16: {TIMED_STEPS} steps of batch {cfg.batch_size} after 4: "
-        f"CUDA-event ms per step median {med:.3f}, min {ev[0]:.3f}, max "
-        f"{ev[-1]:.3f} -> {cfg.batch_size / (med / 1e3):.2f} images/s at the "
-        f"median; peak memory {peak / 2**20:.0f} MiB; last metrics "
-        + json.dumps({k: float(v) for k, v in m.items()}) + f"; card {card}")
-    return launches
+    timing = dict(median_ms=med, min_ms=ev[0], max_ms=ev[-1],
+                  images_per_s=cfg.batch_size / (med / 1e3), peak_mib=peak / 2**20)
+    log(f"train_bf16: stem_pallas {stem}, {TIMED_STEPS} steps of batch "
+        f"{cfg.batch_size} after 4: CUDA-event ms per step median {med:.3f}, "
+        f"min {ev[0]:.3f}, max {ev[-1]:.3f} -> {timing['images_per_s']:.2f} "
+        f"images/s at the median; peak memory {peak / 2**20:.0f} MiB; last "
+        "metrics " + json.dumps({k: float(v) for k, v in m.items()})
+        + f"; card {card}")
+    return launches, timing
+
+
+# ---------------------------------------------------------------- phase 11
+
+TXT_GAP_SHARE = 0.25   # card vs CPU, of the encoder's own fp32-vs-bf16 gap
+
+
+class _CudnnLSTM(torch.nn.Module):
+    """cuDNN's fused LSTM in bf16 behind the port's LSTM interface: the
+    route the text encoder does not take, run here only to measure it."""
+
+    def __init__(self, lstm):
+        super().__init__()
+        self.lstm = torch.nn.LSTM(lstm.input_size, lstm.hidden_size,
+                                  num_layers=lstm.num_layers, bidirectional=True,
+                                  batch_first=True)
+        self.lstm.load_state_dict(lstm.state_dict())
+        self.lstm.to(next(lstm.parameters()).device, torch.bfloat16)
+        self.lstm.flatten_parameters()
+
+    def forward(self, x, lengths, rng=None):
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x, lengths.cpu(), batch_first=True, enforce_sorted=False)
+        _, (h, c) = self.lstm(packed)
+        shape = (self.lstm.num_layers, 2) + tuple(h.shape[1:])
+        return None, h.reshape(shape), c.reshape(shape)
+
+
+def phase_txt_bf16(vocab):
+    """Phase 11: the bf16 text encoder on the card against the same encoder
+    on the CPU, whose loop is bit-equal to the JAX bf16 scan there
+    (tests/test_torch_txt_dtype.py): `encode_txt`'s mu and logvar within a
+    quarter of the encoder's fp32-vs-bf16 gap on the same inputs.  cuDNN's
+    fused bf16 LSTM on the same inputs is measured beside it."""
+    cfg = load_config(str(CONFIG))
+    cfg32 = load_config(str(CONFIG))
+    cfg32.compute_dtype = "float32"
+    cpu = build_generator(cfg, vocab.size, device="cpu", seed=SEED)
+    cpu32 = build_generator(cfg32, vocab.size, device="cpu", seed=SEED)
+    card = build_generator(cfg, vocab.size, device="cuda", seed=SEED)
+    _, cmds = synthetic_requests(BATCH, cfg.image_size, SEED + 2)
+    ids, lens = (torch.from_numpy(a) for a in encode_commands(cmds, vocab, cfg.max_text_len))
+    style = torch.randn(BATCH, cfg.gen.style_dim, generator=torch.Generator().manual_seed(SEED + 13))
+    with torch.inference_mode():
+        ref = cpu.encode_txt(style, ids, lens)
+        ref32 = cpu32.encode_txt(style, ids, lens)
+        got = card.encode_txt(style.cuda(), ids.cuda(), lens)
+        loop = card.enc_txt.lstm
+        card.enc_txt.lstm = _CudnnLSTM(loop)
+        fused = card.enc_txt(style.cuda(), ids.cuda(), lens)
+        card.enc_txt.lstm = loop
+    def diff(a, b):
+        d = torch.cat([(x.float().cpu() - y.float().cpu()).abs().flatten()
+                       for x, y in zip(a, b)])
+        return float(d.max()), float(d.mean())
+
+    gap, err, err_fused = diff(ref32, ref), diff(got, ref), diff(fused, ref)
+    log(f"txt_bf16: batch {BATCH}, longest command {int(lens.max())} tokens; "
+        f"encode_txt (mu, logvar) (max, mean) abs diff from the CPU bf16 "
+        f"encoder: card {err}, cuDNN's fused bf16 LSTM {err_fused}; fp32 vs "
+        f"bf16 on the CPU {gap} (tolerance on the mean: {TXT_GAP_SHARE} of it)")
+    if not err[1] <= TXT_GAP_SHARE * gap[1]:
+        raise AssertionError(f"bf16 text encoder card vs CPU: mean {err[1]} > "
+                             f"{TXT_GAP_SHARE} * {gap[1]}")
+    return err, err_fused, gap
 
 
 # ---------------------------------------------------------------- phases 3, 4
 
-def phase_slice_fp32(vocab):
+def phase_slice_fp32(vocab, stem=False):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(str(CONFIG))
-    cfg.compute_dtype = "float32"
+    cfg.compute_dtype, cfg.stem_pallas = "float32", stem
+    expected = STEM_SERVE_LAUNCHES if stem else SERVE_LAUNCHES
     gen_cpu = build_generator(cfg, vocab.size, device="cpu", seed=SEED)
     gen_gpu = build_generator(cfg, vocab.size, device="cuda", seed=SEED)
     gen_gpu.load_state_dict(gen_cpu.state_dict())
@@ -591,16 +902,21 @@ def phase_slice_fp32(vocab):
                           cfg.max_text_len, torch.device("cuda")).cpu()
     ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
     diff = float((gpu - cpu).abs().max())
-    log(f"slice_fp32: batch 4, norm_stats {cfg.norm_stats}, launches {ran}, "
-        f"max abs diff card vs CPU {diff:.3e} (tolerance {SLICE_ATOL})")
-    if not torch.isfinite(gpu).all() or diff > SLICE_ATOL or ran != SERVE_LAUNCHES:
+    log(f"slice_fp32: stem_pallas {stem}, batch 4, norm_stats "
+        f"{cfg.norm_stats}, launches {ran}, max abs diff card vs CPU "
+        f"{diff:.3e} (tolerance {SLICE_ATOL})")
+    if not torch.isfinite(gpu).all() or diff > SLICE_ATOL or ran != expected:
         raise AssertionError(f"fp32 slice: diff {diff}, launches {ran}")
     torch.backends.cudnn.allow_tf32 = True
     return diff
 
 
-def phase_serve_bf16(vocab, card):
+def phase_serve_bf16(vocab, card, stem=False):
+    """Serving at batch 32 in bf16 (`stem`: with `stem_pallas` on, phase 9).
+    Returns (launches per batch, timing)."""
     cfg = load_config(str(CONFIG))
+    cfg.stem_pallas = stem
+    expected = STEM_SERVE_LAUNCHES if stem else SERVE_LAUNCHES
     dev = torch.device("cuda")
     gen = build_generator(cfg, vocab.size, device=dev, seed=SEED)
     infer = make_infer_fn(cfg, gen)
@@ -611,10 +927,10 @@ def phase_serve_bf16(vocab, card):
     out = translate_batch(infer, imgs, cmds, vocab, cfg.max_text_len, dev)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    log(f"serve_bf16: {cfg.compute_dtype}, norm_stats {cfg.norm_stats}, "
-        f"batch {BATCH}, launches per batch {launches}")
-    if launches != SERVE_LAUNCHES:
-        raise AssertionError(f"launches {launches} != {SERVE_LAUNCHES}")
+    log(f"serve_bf16: stem_pallas {stem}, {cfg.compute_dtype}, norm_stats "
+        f"{cfg.norm_stats}, batch {BATCH}, launches per batch {launches}")
+    if launches != expected:
+        raise AssertionError(f"launches {launches} != {expected}")
     if tuple(out.shape) != (BATCH, cfg.image_size, cfg.image_size, 3) \
             or not torch.isfinite(out).all() or float(out.abs().max()) > 1.0:
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, "
@@ -654,14 +970,18 @@ def phase_serve_bf16(vocab, card):
     ev = sorted(t for t, _ in times)
     wall = sorted(w for _, w in times)
     med = ev[len(ev) // 2]
-    log(f"serve_bf16: {SERVE_BATCHES} batches of {BATCH} after 3 warm-up: "
+    timing = dict(median_ms=med, images_per_s=BATCH / (med / 1e3),
+                  peak_mib=peak / 2**20, encode_ms=enc, encode_txt_ms=txt,
+                  decode_ms=dec)
+    log(f"serve_bf16: stem_pallas {stem}, {SERVE_BATCHES} batches of {BATCH} "
+        f"after 3 warm-up: "
         f"CUDA-event ms per batch median {med:.3f}, min {ev[0]:.3f}, max "
         f"{ev[-1]:.3f} -> {BATCH / (med / 1e3):.1f} images/s at the median; "
         f"host wall ms median {wall[len(wall) // 2]:.3f}, max {wall[-1]:.3f}; "
         f"stages (CUDA events, mean of 10) encode {enc:.3f} ms, encode_txt "
         f"{txt:.3f} ms, decode {dec:.3f} ms; peak memory {peak / 2**20:.0f} "
         f"MiB; card {card}")
-    return launches
+    return launches, timing
 
 
 def main() -> int:
@@ -678,10 +998,20 @@ def main() -> int:
     rows = phase_kernels()
     vocab = Vocab(load_config(str(CONFIG)).dataset)
     phase_slice_fp32(vocab)
-    serve_launches = phase_serve_bf16(vocab, card)
+    serve_launches, serve_off = phase_serve_bf16(vocab, card)
     bwd_rows = phase_backward()
     phase_step_fp32()
-    train_launches = phase_train_bf16(card)
+    train_launches, train_off = phase_train_bf16(card)
+
+    stem_rows = phase_stem()
+    phase_slice_fp32(vocab, stem=True)
+    stem_serve_launches, serve_on = phase_serve_bf16(vocab, card, stem=True)
+    phase_step_fp32(stem=True)
+    stem_train_launches, train_on = phase_train_bf16(card, stem=True)
+    phase_txt_bf16(vocab)
+    log("stem_on_vs_off (phases 9-10 against 4 and 7 of this run): serving "
+        + json.dumps({"on": serve_on, "off": serve_off}) + "; training "
+        + json.dumps({"on": train_on, "off": train_off}))
 
     # per kernel, the flagship setting (bf16, norm_stats 1pass): forward
     # times summed over the call sites of one served batch, backward times
@@ -691,7 +1021,7 @@ def main() -> int:
 
     def entry(name, replaces, mine, per_key, per, launches, extra):
         flag = [r for r in mine if r["dtype"] == "bfloat16"
-                and r["stats"] == cfg.norm_stats]
+                and r["stats"] == cfg.norm_stats and r[per_key]]
         tot = lambda key: sum(r[key] * r[per_key] for r in flag)
         lib = None if flag[0]["library_ms"] is None else tot("library_ms")
         return dict(
@@ -718,6 +1048,17 @@ def main() -> int:
             "calls_per_step", "training step of 16, bf16, " + cfg.norm_stats,
             sum(train_launches[c] for c in counters),
             {"launches_by_counter": {c: train_launches[c] for c in counters}}))
+    stem_entry = lambda name, per_key, per, launches, extra: entry(
+        name, STEM_REPLACES[name], [r for r in stem_rows if r["kernel"] == name],
+        per_key, per, launches, extra)
+    summary.append(dict(stem_entry(
+        "stem_conv7", "calls_per_batch", "served batch of 32 with stem_pallas on, "
+        "bf16, 1pass", stem_serve_launches["stem_conv7"],
+        {"launches_train": stem_train_launches["stem_conv7"]}), source=STEM_SOURCE))
+    summary.append(dict(stem_entry(
+        "stem_conv7_bwd", "calls_per_step", "training step of 16 with stem_pallas "
+        "on, bf16, 1pass", stem_train_launches["stem_conv7_bwd"], {}),
+        source=STEM_SOURCE))
     if any(k["launches"] == 0 or k.get("launches_train") == 0 for k in summary):
         raise AssertionError("a kernel of the serving or training path never launched")
     print(json.dumps({"kernels": summary}), flush=True)

@@ -6,6 +6,7 @@ card.
         [--out profile_serve.json]
     python -m dwcgan_tpu_torch.cli.profile_serve --train \
         [--config configs/celeba_faces.yaml] [--batches 5] [--out ...]
+    python -m dwcgan_tpu_torch.cli.profile_serve --stem_pallas [--train] ...
 
 Builds the generator of `--config` with random weights from `--seed`, makes
 `--batch` seeded requests (smooth random images, commands synthesized from
@@ -22,7 +23,8 @@ and writes (JSON, `--out`):
 
 With `--train` it profiles `--batches` training steps of the config's batch
 size (`cli/train.py`'s trainer, synthetic batches, after 3 warm-up steps)
-instead, and reports per step.
+instead, and reports per step.  `--stem_pallas` switches the config's
+`stem_pallas` on: both encoders' 7x7 stems run the fused stem kernels.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from dwcgan_tpu_torch.train.sampler import make_infer_fn
 
 # kernel-name substrings -> group (first match wins; lower case)
 GROUPS = (
+    ("stem kernels (this port)", ("stem_",)),
     ("norm backward kernels (this port)", ("bwd_sums_kernel",
                                            "bwd_finalize_kernel",
                                            "bwd_apply_kernel",
@@ -82,6 +85,8 @@ def main(argv=None) -> dict:
     p.add_argument("--out", default=None)
     p.add_argument("--train", action="store_true",
                    help="profile training steps instead of served batches")
+    p.add_argument("--stem_pallas", action="store_true",
+                   help="run the encoders' 7x7 stems as the fused stem kernels")
     args = p.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -89,6 +94,7 @@ def main(argv=None) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     cfg = load_config(args.config)
+    cfg.stem_pallas = cfg.stem_pallas or args.stem_pallas
     if args.train:
         state, step, _ = build_trainer(cfg, dev, seed=args.seed)
         batches = synthetic_batches(cfg, dev, seed=args.seed + 9)
@@ -129,6 +135,7 @@ def main(argv=None) -> dict:
         "card": card, "config": args.config, "batch": args.batch,
         "per": "training step" if args.train else "served batch",
         "compute_dtype": cfg.compute_dtype, "norm_stats": cfg.norm_stats,
+        "stem_pallas": bool(cfg.stem_pallas),
         "batches": n, "wall_ms_per_batch": wall_ms / n,
         "device_ms_per_batch": busy_ms / n,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
@@ -136,7 +143,8 @@ def main(argv=None) -> dict:
                                 sorted(groups.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_batch": [[k, ms / n] for k, ms in top],
     }
-    print(f"card {card}; {cfg.compute_dtype}, batch {args.batch}, "
+    print(f"card {card}; {cfg.compute_dtype}, stem_pallas "
+          f"{result['stem_pallas']}, batch {args.batch}, "
           f"{n} {result['per']}s profiled (ms below are per {result['per']})")
     print(f"wall {result['wall_ms_per_batch']:.3f} ms/batch, device "
           f"{result['device_ms_per_batch']:.3f} ms/batch, idle share "

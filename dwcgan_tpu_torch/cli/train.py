@@ -62,7 +62,7 @@ def build_vgg_loss(cfg: Config, device):
 def build_trainer(cfg: Config, device="cuda", seed=None):
     """(state, step_fn, vocab): everything one training iteration needs."""
     dev = resolve_device(device)
-    torch.manual_seed(cfg.seed if seed is None else seed)  # nn.LSTM's dropout
+    torch.manual_seed(cfg.seed if seed is None else seed)  # anything not given state.rng
     vocab = Vocab(cfg.dataset)
     state = create_train_state(cfg, vocab.size, device=dev, seed=seed)
     step_fn = make_train_step(cfg, state.gen, state.dis, state.gen_opt,

@@ -66,8 +66,8 @@ def translate_batch(infer, images: np.ndarray, commands: Sequence[str],
     commands -> edited images [N, H, W, 3] float32 on `device`."""
     ids, lens = encode_commands(commands, vocab, max_len)
     x = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(device)
-    # token ids go to the card; the lengths stay on the host, where
-    # pack_padded_sequence reads them
+    # token ids go to the card; the lengths stay on the host, where the
+    # LSTM reads how many steps to run
     return infer(x, torch.from_numpy(ids).to(device), torch.from_numpy(lens))
 
 

@@ -1,0 +1,660 @@
+// The fused 7x7 encoder stem on Hopper (sm_90a), forward and backward:
+// pad 3 (reflect / replicate / zero) -> 7x7 stride-1 conv 3 -> C plus bias
+// -> optional instance norm -> optional ReLU.
+//
+// Replaces the Pallas TPU kernel of dwcgan_tpu/ops/pallas/stem_kernels.py:
+//   stem_conv7 forward  (_pack, _stem_fwd_kernel via _conv_stats)  -> dwc_stem_conv7
+//   stem_conv7 backward (_stem_bwd_kernel, _unpad_grad)            -> dwc_stem_conv7_bwd
+//
+// What bounds it.  At [32,128,128,3] -> C 64 in bf16 the forward must read
+// the image (3.1 MB) and write y (67 MB): about 21 us at the data-sheet
+// 3.35 TB/s.  Its arithmetic, 2 * 147 * 64 flops per output pixel, is
+// 9.9 GFLOP: 10 us on the bf16 tensor cores, but about 150 us for the fp32
+// FMA units (67 TFLOP/s), which is what this first kernel uses for both
+// dtypes.  So the kernel is bound by operations; with the instance norm it
+// computes the conv twice (moments, then apply), three times for "2pass".
+// The backward recomputes the conv once or twice more and does the dW and
+// dX contractions, each as large as the conv: operations again.
+//
+// Design.  No padded copy of the image exists: every halo load maps its
+// padded coordinate back onto the image (reflect, replicate, or zero).  A
+// block owns an output tile of 8 rows x 32 columns of one sample and all C
+// channels (C a multiple of 8, at most 64): one warp per group of 8
+// channels, one lane per column, each thread 8 rows x 8 channels of fp32
+// accumulators.  The 3 x 14 x 38 halo and the packed [148][C] weights (the
+// bias as row 147, every value already rounded to the compute dtype by the
+// wrapper) sit in shared memory; for one (input channel, column tap) a
+// thread loads 14 halo values once and reuses them for the 7 row taps, and
+// each weight load is a broadcast.  Every pass computes the conv tile with
+// the same code in the same order, so its fp32 values are the same each
+// time: the instance norm works on the un-rounded fp32 accumulator, as the
+// Pallas kernel's does, and only the normalised output is written:
+//   forward, norm none: conv + bias (+ ReLU) -> y, one pass;
+//   forward, norm in:   per-(tile, sample) partial sums of y and y^2 (or of
+//     (y - mean)^2 after a first finalize, for "2pass") -> a finalize per
+//     sample -> a pass that recomputes the tile and writes (y-mean)*rstd.
+// Backward, with the forward's saved [n][2][C] statistics:
+//   (a) norm in: recompute, mask g' = g * [xh > 0] (ReLU), partial sums of
+//       g' and g' * xh -> finalize per sample;
+//   (b) gc = rstd * (g' - mean g' - xh * mean(g' xh)), or g * [y > 0]
+//       without the norm, rounded to the compute dtype (the Pallas rule's
+//       own rounding) and written once;
+//   (c) dW, db: each block sums x-patch * gc over a strided set of 4 x 32
+//       chunks of one sample into its own [148][C] fp32 partial (one lane
+//       per tap, one warp per 8 channels, the bias row against a ones tap);
+//       a last launch sums the partials in a fixed order, so no atomics and
+//       the same result every run;
+//   (d) when the image needs a gradient: dX of every padded position (a
+//       transposed conv of gc, 16 x 32 positions per block, 8 channels of
+//       gc at a time in shared memory), rounded to the compute dtype as the
+//       Pallas kernel stores it, then folded onto the image by the padding's
+//       adjoint (_unpad_grad): each pixel sums the padded positions that
+//       were copies of it, per axis itself plus its reflections or, for
+//       replicate, the three border copies.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTaps = 147;        // 7 * 7 * 3
+constexpr int kRowsW = 148;       // taps + the bias row
+constexpr float kEps = 1e-5f;
+constexpr int kTileH = 8, kTileW = 32;
+constexpr int kHaloH = kTileH + 6, kHaloW = kTileW + 6;
+constexpr int kHalo = 3 * kHaloH * kHaloW;
+constexpr int kMaxC = 64;
+
+enum Pad { kReflect = 0, kReplicate = 1, kZero = 2 };
+
+struct Geom {
+  int n, h, w, c;
+  int tiles_w, tiles;   // output tiles per row band, per sample
+  int pad, relu;
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// 8 consecutive channels
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
+  uint4 a;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = a;
+}
+
+// The image index that padded index i (image coordinates, -3 <= i < n + 3)
+// reads, or -1 for a zero.  Outside that range (the ragged edge of a tile)
+// it is -1 too: no output there is kept.
+__device__ __forceinline__ int src_index(int i, int n, int pad) {
+  if (i < -3 || i >= n + 3) return -1;
+  if (pad == kZero) return (i < 0 || i >= n) ? -1 : i;
+  if (pad == kReplicate) return min(max(i, 0), n - 1);
+  if (i < 0) i = -i;
+  if (i >= n) i = 2 * n - 2 - i;
+  return i;
+}
+
+// The packed weights [148][C] into shared memory (float4 at a time).
+__device__ __forceinline__ void stage_weights(const float* __restrict__ w2p, float* sw, int c) {
+  const int n4 = kRowsW * c / 4;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    reinterpret_cast<float4*>(sw)[i] = reinterpret_cast<const float4*>(w2p)[i];
+}
+
+// The padded 3 x rows x cols halo of the image whose top-left padded corner
+// is image (r0 - 3, c0 - 3), as fp32 at sx[ci * ch_stride + row * row_stride
+// + col] (dense by default).
+template <typename T>
+__device__ __forceinline__ void stage_halo(const T* __restrict__ x, float* sx, int rows,
+                                           int cols, int r0, int c0, int n, const Geom& g,
+                                           int row_stride = 0, int ch_stride = 0) {
+  if (!row_stride) row_stride = cols;
+  if (!ch_stride) ch_stride = rows * cols;
+  const T* xs = x + (size_t)n * g.h * g.w * 3;
+  for (int i = threadIdx.x; i < 3 * rows * cols; i += blockDim.x) {
+    const int ci = i / (rows * cols), rem = i % (rows * cols);
+    const int hr = rem / cols, hc = rem % cols;
+    const int rr = src_index(r0 - 3 + hr, g.h, g.pad);
+    const int cc = src_index(c0 - 3 + hc, g.w, g.pad);
+    sx[ci * ch_stride + hr * row_stride + hc] =
+        (rr < 0 || cc < 0) ? 0.f : to_f(xs[((size_t)rr * g.w + cc) * 3 + ci]);
+  }
+}
+
+// The conv of this thread's 8 rows x 8 channels at column `lane` of the
+// staged tile, in fp32, the bias first.  Always the same order.
+__device__ __forceinline__ void conv_tile(const float* sx, const float* sw, int c, int cg,
+                                          int lane, float acc[kTileH][8]) {
+  const float* bias = sw + kTaps * c + cg * 8;
+#pragma unroll
+  for (int p = 0; p < kTileH; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = bias[q];
+#pragma unroll 1
+  for (int ci = 0; ci < 3; ++ci) {
+#pragma unroll
+    for (int dc = 0; dc < 7; ++dc) {
+      float xv[kHaloH];
+#pragma unroll
+      for (int j = 0; j < kHaloH; ++j) xv[j] = sx[(ci * kHaloH + j) * kHaloW + lane + dc];
+#pragma unroll
+      for (int dr = 0; dr < 7; ++dr) {
+        float wv[8];
+        const float4* wp = reinterpret_cast<const float4*>(sw + ((dr * 7 + dc) * 3 + ci) * c + cg * 8);
+        const float4 wa = wp[0], wb = wp[1];
+        wv[0] = wa.x; wv[1] = wa.y; wv[2] = wa.z; wv[3] = wa.w;
+        wv[4] = wb.x; wv[5] = wb.y; wv[6] = wb.z; wv[7] = wb.w;
+#pragma unroll
+        for (int p = 0; p < kTileH; ++p)
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(xv[p + dr], wv[q], acc[p][q]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+enum Mode {
+  kOut = 0,        // y = conv (+ ReLU)
+  kMoments = 1,    // partial sums of y and y^2
+  kCentred = 2,    // partial sums of (y - mean)^2
+  kApply = 3,      // y = (conv - mean) * rstd (+ ReLU)
+  kGradSums = 4,   // partial sums of g' and g' * xh
+  kGradIn = 5,     // gc of the instance norm (+ ReLU)
+  kGradRelu = 6,   // gc = g * [conv > 0]
+};
+
+// One output tile per block: stage, conv, then the mode's epilogue.
+// stats [n][2][c] (mean, rstd); gst [n][2][c] (mean g', mean g' xh);
+// part_a, part_b [n][tiles][c].
+template <typename T, int kMode>
+__global__ void __launch_bounds__(256)
+stem_tile_kernel(const T* __restrict__ x, const float* __restrict__ w2p,
+                 const T* __restrict__ gr, const float* __restrict__ stats,
+                 const float* __restrict__ gst, T* __restrict__ out,
+                 float* __restrict__ part_a, float* __restrict__ part_b, Geom g) {
+  extern __shared__ float smem[];
+  float* sw = smem;
+  float* sx = smem + kRowsW * g.c;
+  const int tile = blockIdx.x, n = blockIdx.y;
+  const int r0 = (tile / g.tiles_w) * kTileH, c0 = (tile % g.tiles_w) * kTileW;
+  const int cg = threadIdx.x / 32, lane = threadIdx.x % 32;
+  stage_weights(w2p, sw, g.c);
+  stage_halo(x, sx, kHaloH, kHaloW, r0, c0, n, g);
+  __syncthreads();
+  float acc[kTileH][8];
+  conv_tile(sx, sw, g.c, cg, lane, acc);
+
+  const int col = c0 + lane, ch = cg * 8;
+  const bool col_ok = col < g.w;
+  float mean[8], rstd[8], m_g[8], m_gx[8];
+  if (kMode == kCentred || kMode == kApply || kMode == kGradSums || kMode == kGradIn) {
+    const float* st = stats + (size_t)n * 2 * g.c;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      mean[q] = st[ch + q];
+      rstd[q] = st[g.c + ch + q];
+    }
+  }
+  if (kMode == kGradIn) {
+    const float* gs = gst + (size_t)n * 2 * g.c;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      m_g[q] = gs[ch + q];
+      m_gx[q] = gs[g.c + ch + q];
+    }
+  }
+  float sa[8], sb[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) sa[q] = sb[q] = 0.f;
+#pragma unroll
+  for (int p = 0; p < kTileH; ++p) {
+    const int row = r0 + p;
+    if (!col_ok || row >= g.h) continue;
+    const size_t off = (((size_t)n * g.h + row) * g.w + col) * g.c + ch;
+    float v[8], gv[8];
+    if (kMode == kGradSums || kMode == kGradIn || kMode == kGradRelu) load8(gr + off, gv);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float y = acc[p][q];
+      if (kMode == kOut) {
+        v[q] = g.relu ? fmaxf(y, 0.f) : y;
+      } else if (kMode == kMoments) {
+        sa[q] += y;
+        sb[q] += y * y;
+      } else if (kMode == kCentred) {
+        const float d = y - mean[q];
+        sb[q] += d * d;
+      } else if (kMode == kApply) {
+        const float t = (y - mean[q]) * rstd[q];
+        v[q] = g.relu ? fmaxf(t, 0.f) : t;
+      } else if (kMode == kGradRelu) {
+        v[q] = y > 0.f ? gv[q] : 0.f;
+      } else {
+        const float xh = (y - mean[q]) * rstd[q];
+        const float gp = (!g.relu || xh > 0.f) ? gv[q] : 0.f;
+        if (kMode == kGradSums) {
+          sa[q] += gp;
+          sb[q] += gp * xh;
+        } else {
+          v[q] = rstd[q] * (gp - m_g[q] - xh * m_gx[q]);
+        }
+      }
+    }
+    if (kMode == kOut || kMode == kApply || kMode == kGradIn || kMode == kGradRelu)
+      store8(out + off, v);
+  }
+  if (kMode == kMoments || kMode == kCentred || kMode == kGradSums) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      sa[q] = warp_sum(sa[q]);
+      sb[q] = warp_sum(sb[q]);
+    }
+    if (lane < 8) {
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (q == lane) {
+          a = sa[q];
+          b = sb[q];
+        }
+      const size_t o = ((size_t)n * g.tiles + tile) * g.c + ch + lane;
+      if (kMode != kCentred) part_a[o] = a;
+      part_b[o] = b;
+    }
+  }
+}
+
+// One block per sample, one thread per channel: the tiles' partial sums ->
+//   kFwd1pass: mean, rstd from E[y^2] - mean^2 (clamped at 0);
+//   kFwdMean:  mean alone (the first half of "2pass");
+//   kFwdVar:   rstd from the centred sums (mean already in place);
+//   kBwd:      mean g' and mean g' xh.
+enum Fin { kFwd1pass = 0, kFwdMean = 1, kFwdVar = 2, kBwd = 3 };
+
+template <int kFin>
+__global__ void stem_finalize_kernel(const float* __restrict__ part_a,
+                                     const float* __restrict__ part_b,
+                                     float* __restrict__ out, Geom g) {
+  const int n = blockIdx.x;
+  const float hw = (float)g.h * (float)g.w;
+  for (int c = threadIdx.x; c < g.c; c += blockDim.x) {
+    float a = 0.f, b = 0.f;
+    for (int t = 0; t < g.tiles; ++t) {
+      const size_t o = ((size_t)n * g.tiles + t) * g.c + c;
+      if (kFin != kFwdVar) a += part_a[o];
+      if (kFin != kFwdMean) b += part_b[o];
+    }
+    float* st = out + (size_t)n * 2 * g.c;
+    if (kFin == kBwd) {
+      st[c] = a / hw;
+      st[g.c + c] = b / hw;
+    } else if (kFin == kFwdVar) {
+      st[g.c + c] = 1.f / sqrtf(b / hw + kEps);
+    } else {
+      const float mean = a / hw;
+      st[c] = mean;
+      if (kFin == kFwd1pass) st[g.c + c] = 1.f / sqrtf(fmaxf(b / hw - mean * mean, 0.f) + kEps);
+    }
+  }
+}
+
+// ------------------------------------------------------------ dW and db
+
+constexpr int kChunkH = 4, kChunkW = 32, kChunk = kChunkH * kChunkW;
+constexpr int kChunkHaloH = kChunkH + 6;
+constexpr int kTapSets = 5;   // taps per lane: lane, lane + 32, ..., < 148
+// Halo strides of the dW kernel, padded from 38 and 380 floats: the 32
+// lanes of a warp read 32 different taps of one pixel, and with these
+// strides every tap set falls on 32 different banks (dense, up to 3-way
+// conflicts).
+constexpr int kDwRowStride = 39, kDwChStride = 395;
+
+// Block (j, n) sums over the chunks j, j + gridDim.x, ... of sample n:
+// dw_part[(n * gridDim.x + j)][k][c] = sum x_patch[k] * gc[c], with tap 147
+// the ones tap (db).  Warp = 8 channels, lane = a tap set.
+template <typename T>
+__global__ void __launch_bounds__(256)
+stem_dw_kernel(const T* __restrict__ x, const T* __restrict__ gc,
+               float* __restrict__ dw_part, Geom g) {
+  __shared__ float sx[3 * kDwChStride];
+  __shared__ __align__(16) float sg[kChunk * kMaxC];
+  const int n = blockIdx.y, j0 = blockIdx.x;
+  const int cg = threadIdx.x / 32, lane = threadIdx.x % 32, ch = cg * 8;
+  const int chunks_w = (g.w + kChunkW - 1) / kChunkW;
+  const int chunks = ((g.h + kChunkH - 1) / kChunkH) * chunks_w;
+  int off[kTapSets];
+#pragma unroll
+  for (int m = 0; m < kTapSets; ++m) {
+    const int k = lane + 32 * m;
+    const int tap = k / 3, ci = k % 3;
+    off[m] = k < kTaps ? ci * kDwChStride + (tap / 7) * kDwRowStride + tap % 7 : -1;
+  }
+  float acc[kTapSets][8];
+#pragma unroll
+  for (int m = 0; m < kTapSets; ++m)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[m][q] = 0.f;
+  const T* gs = gc + (size_t)n * g.h * g.w * g.c;
+  for (int chunk = j0; chunk < chunks; chunk += gridDim.x) {
+    const int r0 = (chunk / chunks_w) * kChunkH, c0 = (chunk % chunks_w) * kChunkW;
+    __syncthreads();   // the previous chunk is consumed
+    stage_halo(x, sx, kChunkHaloH, kHaloW, r0, c0, n, g, kDwRowStride, kDwChStride);
+    const int groups = g.c / 8;
+    for (int i = threadIdx.x; i < kChunk * groups; i += blockDim.x) {
+      const int p = i / groups, c = (i % groups) * 8;
+      const int row = r0 + p / kChunkW, col = c0 + p % kChunkW;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (row < g.h && col < g.w) load8(gs + ((size_t)row * g.w + col) * g.c + c, v);
+      store8(sg + p * g.c + c, v);
+    }
+    __syncthreads();
+    if (ch < g.c) {
+      for (int p = 0; p < kChunk; ++p) {
+        const int base = (p / kChunkW) * kDwRowStride + p % kChunkW;
+        float gv[8];
+        const float4* gp = reinterpret_cast<const float4*>(sg + p * g.c + ch);
+        const float4 ga = gp[0], gb = gp[1];
+        gv[0] = ga.x; gv[1] = ga.y; gv[2] = ga.z; gv[3] = ga.w;
+        gv[4] = gb.x; gv[5] = gb.y; gv[6] = gb.z; gv[7] = gb.w;
+#pragma unroll
+        for (int m = 0; m < kTapSets; ++m) {
+          const int k = lane + 32 * m;
+          if (k > kTaps) continue;
+          const float xv = k == kTaps ? 1.f : sx[off[m] + base];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc[m][q] = fmaf(xv, gv[q], acc[m][q]);
+        }
+      }
+    }
+  }
+  if (ch >= g.c) return;
+  float* dp = dw_part + ((size_t)n * gridDim.x + j0) * kRowsW * g.c;
+#pragma unroll
+  for (int m = 0; m < kTapSets; ++m) {
+    const int k = lane + 32 * m;
+    if (k <= kTaps) store8(dp + (size_t)k * g.c + ch, acc[m]);
+  }
+}
+
+// dw[k][c] = the partials summed in order, one thread per (k, c).
+__global__ void stem_dw_reduce_kernel(const float* __restrict__ dw_part, float* __restrict__ dw,
+                                      int parts, int size) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= size) return;
+  float s = 0.f;
+  for (int p = 0; p < parts; ++p) s += dw_part[(size_t)p * size + i];
+  dw[i] = s;
+}
+
+// ------------------------------------------------------------------ dX
+
+constexpr int kDxH = 16, kDxW = 32, kDxCh = 8;
+constexpr int kDxHaloH = kDxH + 6, kDxHaloW = kDxW + 6;
+
+// dxp[n][pr][pc][ci] = sum_{dr, dc, c} gc[pr - dr][pc - dc][c] * w[dr][dc][ci][c]
+// over padded positions (hp = h + 6 rows, wp = w + 6 columns), rounded to T.
+// Two warps per block, each 8 padded rows x 32 columns x 3 channels.
+template <typename T>
+__global__ void __launch_bounds__(64)
+stem_dxp_kernel(const T* __restrict__ gc, const float* __restrict__ w2p,
+                T* __restrict__ dxp, Geom g) {
+  __shared__ float sg[kDxCh * kDxHaloH * kDxHaloW];
+  __shared__ __align__(16) float swt[kDxCh * 49 * 4];
+  const int hp = g.h + 6, wp = g.w + 6;
+  const int tiles_w = (wp + kDxW - 1) / kDxW;
+  const int n = blockIdx.y;
+  const int r0 = (blockIdx.x / tiles_w) * kDxH, c0 = (blockIdx.x % tiles_w) * kDxW;
+  const int wi = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const T* gs = gc + (size_t)n * g.h * g.w * g.c;
+  float acc[8][3];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci) acc[p][ci] = 0.f;
+  for (int cb = 0; cb < g.c; cb += kDxCh) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kDxCh * kDxHaloH * kDxHaloW; i += blockDim.x) {
+      const int c = i % kDxCh, rest = i / kDxCh;
+      const int row = r0 - 6 + rest / kDxHaloW, col = c0 - 6 + rest % kDxHaloW;
+      sg[(c * kDxHaloH + rest / kDxHaloW) * kDxHaloW + rest % kDxHaloW] =
+          (row >= 0 && row < g.h && col >= 0 && col < g.w)
+              ? to_f(gs[((size_t)row * g.w + col) * g.c + cb + c]) : 0.f;
+    }
+    for (int i = threadIdx.x; i < kDxCh * 49 * 4; i += blockDim.x) {
+      const int c = i / (49 * 4), tap = (i / 4) % 49, ci = i % 4;
+      swt[i] = ci < 3 ? w2p[(tap * 3 + ci) * g.c + cb + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int c = 0; c < kDxCh; ++c) {
+#pragma unroll
+      for (int dc = 0; dc < 7; ++dc) {
+        float gv[14];
+#pragma unroll
+        for (int jj = 0; jj < 14; ++jj)
+          gv[jj] = sg[(c * kDxHaloH + 8 * wi + jj) * kDxHaloW + lane - dc + 6];
+#pragma unroll
+        for (int dr = 0; dr < 7; ++dr) {
+          const float4 w4 = reinterpret_cast<const float4*>(swt)[c * 49 + dr * 7 + dc];
+#pragma unroll
+          for (int p = 0; p < 8; ++p) {
+            const float v = gv[p - dr + 6];
+            acc[p][0] = fmaf(v, w4.x, acc[p][0]);
+            acc[p][1] = fmaf(v, w4.y, acc[p][1]);
+            acc[p][2] = fmaf(v, w4.z, acc[p][2]);
+          }
+        }
+      }
+    }
+  }
+  const int col = c0 + lane;
+  if (col >= wp) return;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int row = r0 + 8 * wi + p;
+    if (row >= hp) continue;
+    T* o = dxp + (((size_t)n * hp + row) * wp + col) * 3;
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci) o[ci] = from_f<T>(acc[p][ci]);
+  }
+}
+
+// The padded indices (0 .. n + 5) that were copies of image index i: itself
+// first, then its reflections, or for replicate the border's three copies.
+__device__ __forceinline__ int copies(int i, int n, int pad, int* out) {
+  int k = 0;
+  out[k++] = i + 3;
+  if (pad == kReflect) {
+    if (i >= 1 && i <= 3) out[k++] = 3 - i;
+    if (i >= n - 4 && i <= n - 2) out[k++] = 2 * n + 1 - i;
+  } else if (pad == kReplicate) {
+    if (i == 0) for (int j = 0; j < 3; ++j) out[k++] = j;
+    if (i == n - 1) for (int j = 0; j < 3; ++j) out[k++] = n + 3 + j;
+  }
+  return k;
+}
+
+// dx[n][r][c][ci] = the padded copies of (r, c) summed in fp32 (the copy
+// itself, then the row copies, then the column copies, then both), rounded
+// to T: the adjoint of the padding.  One thread per pixel.
+template <typename T>
+__global__ void stem_fold_kernel(const T* __restrict__ dxp, T* __restrict__ dx, Geom g) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)g.n * g.h * g.w) return;
+  const int col = i % g.w, row = (i / g.w) % g.h, n = i / ((size_t)g.w * g.h);
+  const int hp = g.h + 6, wp = g.w + 6;
+  int rows[6], cols[6];
+  const int nr = copies(row, g.h, g.pad, rows), nc = copies(col, g.w, g.pad, cols);
+  float s[3] = {0.f, 0.f, 0.f};
+  for (int pass = 0; pass < 4; ++pass) {   // (self, self), (copy, self), (self, copy), (copy, copy)
+    const int ra = pass & 1 ? 1 : 0, rb = pass & 1 ? nr : 1;
+    const int ca = pass & 2 ? 1 : 0, cb = pass & 2 ? nc : 1;
+    for (int a = ra; a < rb; ++a)
+      for (int b = ca; b < cb; ++b) {
+        const T* v = dxp + (((size_t)n * hp + rows[a]) * wp + cols[b]) * 3;
+#pragma unroll
+        for (int ci = 0; ci < 3; ++ci) s[ci] += to_f(v[ci]);
+      }
+  }
+#pragma unroll
+  for (int ci = 0; ci < 3; ++ci) dx[i * 3 + ci] = from_f<T>(s[ci]);
+}
+
+// ------------------------------------------------------------- launches
+
+int make_geom(int n, int h, int w, int c, int pad, int relu, Geom* g) {
+  if (n < 1 || h < 4 || w < 4 || c < 8 || c > kMaxC || c % 8 != 0 || pad < 0 || pad > 2)
+    return (int)cudaErrorInvalidValue;
+  const int tiles_w = (w + kTileW - 1) / kTileW;
+  *g = Geom{n, h, w, c, tiles_w, tiles_w * ((h + kTileH - 1) / kTileH), pad, relu};
+  return 0;
+}
+
+template <typename T, int kMode>
+void tile_launch(const void* x, const float* w2p, const void* gr, const float* stats,
+                 const float* gst, void* out, float* pa, float* pb, const Geom& g,
+                 cudaStream_t st) {
+  const size_t smem = (kRowsW * g.c + kHalo) * sizeof(float);
+  stem_tile_kernel<T, kMode><<<dim3(g.tiles, g.n), 32 * (g.c / 8), smem, st>>>(
+      static_cast<const T*>(x), w2p, static_cast<const T*>(gr), stats, gst,
+      static_cast<T*>(out), pa, pb, g);
+}
+
+template <typename T>
+int forward(const void* x, const float* w2p, void* y, float* stats, float* ws, const Geom& g,
+            int norm_in, int two_pass, cudaStream_t st) {
+  if (!norm_in) {
+    tile_launch<T, kOut>(x, w2p, nullptr, nullptr, nullptr, y, nullptr, nullptr, g, st);
+    return (int)cudaGetLastError();
+  }
+  float* pa = ws;
+  float* pb = ws + (size_t)g.n * g.tiles * g.c;
+  if (two_pass) {
+    tile_launch<T, kMoments>(x, w2p, nullptr, nullptr, nullptr, nullptr, pa, pb, g, st);
+    stem_finalize_kernel<kFwdMean><<<g.n, 64, 0, st>>>(pa, pb, stats, g);
+    tile_launch<T, kCentred>(x, w2p, nullptr, stats, nullptr, nullptr, pa, pb, g, st);
+    stem_finalize_kernel<kFwdVar><<<g.n, 64, 0, st>>>(pa, pb, stats, g);
+  } else {
+    tile_launch<T, kMoments>(x, w2p, nullptr, nullptr, nullptr, nullptr, pa, pb, g, st);
+    stem_finalize_kernel<kFwd1pass><<<g.n, 64, 0, st>>>(pa, pb, stats, g);
+  }
+  tile_launch<T, kApply>(x, w2p, nullptr, stats, nullptr, y, nullptr, nullptr, g, st);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int backward(const void* x, const float* w2p, const void* gr, const float* stats, void* gc,
+             void* dxp, void* dx, float* dw, float* ws, int dw_blocks, const Geom& g,
+             int norm_in, cudaStream_t st) {
+  const size_t part = (size_t)g.n * g.tiles * g.c;
+  float* pa = ws;
+  float* pb = ws + part;
+  float* gst = ws + 2 * part;
+  float* dwp = gst + 2 * (size_t)g.n * g.c;
+  const void* gcv = gr;   // norm none, act none: gc is g itself
+  if (norm_in) {
+    tile_launch<T, kGradSums>(x, w2p, gr, stats, nullptr, nullptr, pa, pb, g, st);
+    stem_finalize_kernel<kBwd><<<g.n, 64, 0, st>>>(pa, pb, gst, g);
+    tile_launch<T, kGradIn>(x, w2p, gr, stats, gst, gc, nullptr, nullptr, g, st);
+    gcv = gc;
+  } else if (g.relu) {
+    tile_launch<T, kGradRelu>(x, w2p, gr, nullptr, nullptr, gc, nullptr, nullptr, g, st);
+    gcv = gc;
+  }
+  stem_dw_kernel<T><<<dim3(dw_blocks, g.n), 32 * (g.c / 8), 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(gcv), dwp, g);
+  const int size = kRowsW * g.c;
+  stem_dw_reduce_kernel<<<(size + 255) / 256, 256, 0, st>>>(dwp, dw, g.n * dw_blocks, size);
+  if (dx) {
+    const int tiles = ((g.h + 6 + kDxH - 1) / kDxH) * ((g.w + 6 + kDxW - 1) / kDxW);
+    stem_dxp_kernel<T><<<dim3(tiles, g.n), 64, 0, st>>>(
+        static_cast<const T*>(gcv), w2p, static_cast<T*>(dxp), g);
+    const size_t pixels = (size_t)g.n * g.h * g.w;
+    stem_fold_kernel<T><<<(unsigned)((pixels + 255) / 256), 256, 0, st>>>(
+        static_cast<const T*>(dxp), static_cast<T*>(dx), g);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x: [n][h][w][3] (NHWC bytes), float32 (dtype 0) or bfloat16 (1).  w2p:
+// float32 [148][c], row (dr * 7 + dc) * 3 + ci, row 147 the bias, every value
+// already rounded to the compute dtype.  pad: 0 reflect, 1 replicate, 2 zero.
+// c a multiple of 8, at most 64; h, w >= 4.  Each returns cudaGetLastError()
+// after its launches (an invalid shape: cudaErrorInvalidValue, no launch).
+
+// y: [n][h][w][c].  With norm_in, stats: float32 [n][2][c] (mean, rstd),
+// written for the backward, and ws: float32 2 * n * tiles * c, tiles =
+// ceil(h / 8) * ceil(w / 32).
+extern "C" int dwc_stem_conv7(const void* x, const void* w2p, void* y, void* stats, void* ws,
+                              int n, int h, int w, int c, int dtype, int norm_in, int relu,
+                              int pad, int two_pass, void* stream) {
+  Geom g;
+  const int bad = make_geom(n, h, w, c, pad, relu, &g);
+  if (bad) return bad;
+  const float* wp = static_cast<const float*>(w2p);
+  float* st = static_cast<float*>(stats);
+  float* wk = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return forward<__nv_bfloat16>(x, wp, y, st, wk, g, norm_in, two_pass, s);
+  return forward<float>(x, wp, y, st, wk, g, norm_in, two_pass, s);
+}
+
+// g: the incoming gradient [n][h][w][c]; stats: the forward's (norm_in).
+// gc: scratch [n][h][w][c] of the data type (unused without norm and ReLU).
+// dxp: scratch [n][h + 6][w + 6][3] and dx: [n][h][w][3], both NULL when the
+// image needs no gradient.  dw: float32 [148][c] out (row 147 db).  ws:
+// float32 2 * n * tiles * c + 2 * n * c + n * dw_blocks * 148 * c.
+extern "C" int dwc_stem_conv7_bwd(const void* x, const void* w2p, const void* g,
+                                  const void* stats, void* gc, void* dxp, void* dx, void* dw,
+                                  void* ws, int n, int h, int w, int c, int dtype, int norm_in,
+                                  int relu, int pad, int dw_blocks, void* stream) {
+  Geom geo;
+  const int bad = make_geom(n, h, w, c, pad, relu, &geo);
+  if (bad) return bad;
+  if (dw_blocks < 1 || (dx == nullptr) != (dxp == nullptr)) return (int)cudaErrorInvalidValue;
+  const float* wp = static_cast<const float*>(w2p);
+  const float* st = static_cast<const float*>(stats);
+  float* d = static_cast<float*>(dw);
+  float* wk = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return backward<__nv_bfloat16>(x, wp, g, st, gc, dxp, dx, d, wk, dw_blocks, geo, norm_in, s);
+  return backward<float>(x, wp, g, st, gc, dxp, dx, d, wk, dw_blocks, geo, norm_in, s);
+}

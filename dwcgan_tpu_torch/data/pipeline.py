@@ -57,7 +57,7 @@ def synthetic_batch(batch_size: int, image_size: int = 128, num_cls: int = 8,
 
 def to_device(batch: Batch, device) -> Batch:
     """numpy batch -> torch tensors on `device`; `txt_len` stays on the
-    host, where `pack_padded_sequence` wants it (no device sync)."""
+    host, where the LSTM reads how many steps to run (no device sync)."""
     dev = torch.device(device)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev, non_blocking=True)
     return Batch(f32(batch.image), f32(batch.src_label), f32(batch.trg_label),

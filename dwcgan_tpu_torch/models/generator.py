@@ -12,15 +12,13 @@ Parameters are fp32 and named as in the reference torch model
 (`enc_content.model.{i}.conv`, `dec.model.0.model.{b}.model.{0,1}.conv`,
 `enc_txt.lstm.weight_ih_l0`, `enc_style.fcs.{i}`, ...), so
 `dwcgan_tpu/interop/torch_import.py` reads a port `state_dict()` directly.
-The convolutions and matmuls run in the compute dtype; the text encoder
-(embedding, bi-LSTM, heads) runs in fp32 whatever that dtype is.
+Everything computes in the compute dtype, the text encoder (embedding
+output, bi-LSTM, heads) too, as in the JAX model.
 
 In train mode the style encoder's mapping dropout and the text encoder's
-input dropout draw their masks from the `rng` generator that `encode` and
-`encode_txt` are given; the LSTM's inter-layer dropout is `nn.LSTM`'s own
-and draws from torch's default generator of the device.
-`set_dropout(False)` turns all three off while the modules stay in train
-mode (cuDNN's LSTM backward runs only in train mode).
+input and inter-layer dropouts draw their masks from the `rng` generator
+that `encode` and `encode_txt` are given.  `set_dropout(False)` turns all
+three off while the modules stay in train mode.
 """
 
 from __future__ import annotations
@@ -44,10 +42,11 @@ from dwcgan_tpu_torch.ops.resize import upsample2x
 
 
 def _fused_linear(x, linears):
-    """The per-attribute Linear heads on one input, as one matmul."""
+    """The per-attribute Linear heads on one input, as one matmul; the
+    product and the bias add round apart, as a flax `Dense` does."""
     w = torch.cat([m.weight for m in linears]).to(x.dtype)
     b = torch.cat([m.bias for m in linears]).to(x.dtype)
-    return F.linear(x, w, b)
+    return x @ w.t() + b
 
 
 class ContentEncoder(nn.Module):
@@ -55,9 +54,10 @@ class ContentEncoder(nn.Module):
     (reference `ContentEncoder`, networks.py:428-446; dim cap 256)."""
 
     def __init__(self, input_dim: int, dim: int, n_downsample: int,
-                 n_res: int, activ: str, pad_type: str):
+                 n_res: int, activ: str, pad_type: str, stem: bool = False):
         super().__init__()
-        layers = [Conv2dBlock(input_dim, dim, 7, 1, 3, "in", activ, pad_type)]
+        layers = [Conv2dBlock(input_dim, dim, 7, 1, 3, "in", activ, pad_type,
+                              stem=stem)]
         d = dim
         for _ in range(n_downsample):
             nd = min(d * 2, 256)
@@ -82,10 +82,10 @@ class StyleEncoder(nn.Module):
 
     def __init__(self, input_dim: int, dim: int, n_downsample: int,
                  c_dim: int, num_cls: int, activ: str, pad_type: str,
-                 use_map: bool):
+                 use_map: bool, stem: bool = False):
         super().__init__()
         kw = dict(norm="none", activ=activ, pad_type=pad_type)
-        layers = [Conv2dBlock(input_dim, dim, 7, 1, 3, **kw)]
+        layers = [Conv2dBlock(input_dim, dim, 7, 1, 3, **kw, stem=stem)]
         d = dim
         for _ in range(2):
             layers.append(Conv2dBlock(d, 2 * d, 4, 2, 1, **kw))
@@ -135,8 +135,10 @@ class TxtEncoder(nn.Module):
 
     def __init__(self, vocab_size: int, embed_dim: int, hidden_size: int,
                  c_dim: int, num_cls: int, num_layers: int,
-                 dropout_in: float, dropout_out: float):
+                 dropout_in: float, dropout_out: float,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.embed_tokens = nn.Embedding(vocab_size, embed_dim)
         self.lstm = MaskedBiLSTM(embed_dim + num_cls * c_dim, hidden_size,
                                  num_layers, dropout_out)
@@ -150,11 +152,12 @@ class TxtEncoder(nn.Module):
         self.shape = (num_cls, c_dim)
 
     def forward(self, style_flat, tokens, lengths, rng=None):
-        """style_flat: [N, num_cls*c_dim]; tokens: [N, T] int; lengths: [N]."""
-        x = dropout(self.embed_tokens(tokens.long()), self.dropout_in,
-                    self.training, rng)
-        style_b = style_flat.float()[:, None, :].expand(-1, x.shape[1], -1)
-        _, h, c = self.lstm(torch.cat([x, style_b], dim=-1), lengths)
+        """style_flat: [N, num_cls*c_dim]; tokens: [N, T] int; lengths: [N]
+        (best on the host).  Computes in `self.dtype`."""
+        x = dropout(self.embed_tokens(tokens.long()).to(self.dtype),
+                    self.dropout_in, self.training, rng)
+        style_b = style_flat.to(self.dtype)[:, None, :].expand(-1, x.shape[1], -1)
+        _, h, c = self.lstm(torch.cat([x, style_b], dim=-1), lengths, rng)
         feats = torch.cat([torch.cat([h[l, 0], h[l, 1], c[l, 0], c[l, 1]], -1)
                            for l in range(h.shape[0])], dim=-1)
         shape = (feats.shape[0],) + self.shape
@@ -224,22 +227,22 @@ class Generator(nn.Module):
 
     def __init__(self, cfg: GenConfig, input_dim: int = 3,
                  vocab_size: int = 102, dtype: torch.dtype = torch.float32,
-                 stats: str = "2pass"):
+                 stats: str = "2pass", stem: bool = False):
         super().__init__()
         c = cfg
         self.cfg, self.dtype = cfg, dtype
         self.enc_style = StyleEncoder(input_dim, c.dim, c.style_downsample,
                                       c.c_dim, c.num_cls, c.activ, c.pad_type,
-                                      c.use_map)
+                                      c.use_map, stem)
         self.enc_content = ContentEncoder(input_dim, c.dim,
                                           c.content_downsample, c.n_res,
-                                          c.activ, c.pad_type)
+                                          c.activ, c.pad_type, stem)
         self.dec = Decoder(self.enc_content.output_dim, input_dim,
                            c.content_downsample, c.n_res, c.activ,
                            c.pad_type, c.use_attention)
         self.enc_txt = TxtEncoder(vocab_size, c.embed_dim, c.hidden_size,
                                   c.c_dim, c.num_cls, c.num_layers,
-                                  c.dropout_in, c.dropout_out)
+                                  c.dropout_in, c.dropout_out, dtype)
         self.mlp = MLP(c.style_dim, self.dec.num_adain_params, c.mlp_dim,
                        n_blk=3, norm="none", activ=c.activ)
         self.set_norm_stats(stats)
@@ -321,18 +324,20 @@ def build_generator(cfg: Config, vocab_size: int, device="cuda",
     or, with `train`, in train mode (dropout on).
 
     Compute dtype from `cfg.compute_dtype`, variance form from
-    `cfg.norm_stats`.  `embed_table` ([vocab, embed_dim]) replaces the
-    random word embeddings (the trainer then keeps it frozen).  The LSTM's
-    `bias_hh` is frozen at zero.  `use_pallas`, `stem_pallas` and
-    `parity_convs` pick TPU code paths and change nothing here: on the card
-    the norm kernels always run, and the convolutions are plain ones."""
+    `cfg.norm_stats`.  `cfg.stem_pallas` runs both encoders' 7x7 stems as
+    the fused stem (`ops/stem.py`; its own kernels on the card).
+    `embed_table` ([vocab, embed_dim]) replaces the random word embeddings
+    (the trainer then keeps it frozen).  The LSTM's `bias_hh` is frozen at
+    zero.  `use_pallas` and `parity_convs` pick TPU code paths and change
+    nothing here: on the card the norm kernels always run, and
+    `parity_convs` is an XLA rewrite of the same convolution."""
     dev = resolve_device(device)
     if cfg.norm_compute != "fp32":
         raise NotImplementedError(
             f"norm_compute {cfg.norm_compute!r}: only 'fp32' is ported so far")
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     gen = Generator(cfg.gen, cfg.input_dim, vocab_size, dtype=dtype,
-                    stats=cfg.norm_stats)
+                    stats=cfg.norm_stats, stem=bool(cfg.stem_pallas))
     init_weights(gen, cfg.init, seed)
     if embed_table is not None:
         with torch.no_grad():

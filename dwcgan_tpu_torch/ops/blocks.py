@@ -25,6 +25,7 @@ from torch import nn
 
 from dwcgan_tpu_torch.ops.norms import (adain, adain_residual, instance_norm,
                                         layer_norm_ref)
+from dwcgan_tpu_torch.ops.stem import stem_applicable, stem_conv7
 
 # LeakyReLU slopes differ between conv and linear blocks in the reference
 # (networks.py:559 vs :614).
@@ -105,17 +106,29 @@ class LayerNormRef(nn.Module):
 class Conv2dBlock(nn.Module):
     """pad -> conv -> norm -> activation (networks.py:524-585).
 
-    A ReLU after in/adain is fused into the norm kernel."""
+    A ReLU after in/adain is fused into the norm kernel.  With `stem` set, a
+    block that `stem_applicable` accepts (a 7x7 stride-1 pad-3 conv from 3
+    channels, norm in or none, activation relu or none) runs as one fused
+    `stem_conv7` call, as the JAX block does with `stem_pallas`
+    (dwcgan_tpu/ops/blocks.py:155-168), with the same parameters.  Its
+    statistics are 1pass whatever `stats` says: the JAX stem has no other
+    mode.  There is no size gate: the JAX block also asks `stem_fits_vmem`,
+    a TPU memory estimate that passes at 128 px and 64 channels; above it
+    JAX runs its jnp path, which normalises the bf16-rounded conv output,
+    where this stem normalises the fp32 one (the two agree in fp32)."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, norm: str = "none",
-                 activ: str = "relu", pad_type: str = "zero"):
+                 activ: str = "relu", pad_type: str = "zero",
+                 stem: bool = False):
         super().__init__()
         if norm not in CONV_NORMS:
             raise NotImplementedError(f"norm {norm!r} is not in this slice of "
                                       f"the port ({CONV_NORMS})")
         self.padding, self.pad_type, self.stride = padding, pad_type, stride
         self.norm_type, self.activ = norm, activ
+        self.stem = stem and stem_applicable(kernel_size, stride, padding,
+                                             in_dim, norm, activ)
         # how the norm forms its variance; `Generator.set_norm_stats` sets it
         self.stats = "2pass"
         self.act = activation(activ)
@@ -131,6 +144,11 @@ class Conv2dBlock(nn.Module):
         return channels_last(y)
 
     def forward(self, x, adain_scale=None, adain_bias=None):
+        if self.stem:
+            y = stem_conv7(x.permute(0, 2, 3, 1), self.conv.weight,
+                           self.conv.bias, self.norm_type, self.activ,
+                           self.pad_type, "1pass")
+            return y.permute(0, 3, 1, 2)
         y = self.conv_raw(x)
         fuse_relu = self.activ == "relu"
         if self.norm_type == "in":

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc into a shared library.
 
-The sources under `dwcgan_tpu_torch/csrc/` have a plain C interface, so one
-`nvcc -shared` call builds them in seconds (no PyTorch headers) and `ctypes`
-loads the result.  The library goes to `build/kernels/` at the root of the
+The sources under `dwcgan_tpu_torch/csrc/` have a plain C interface, so
+nvcc builds them in seconds (no PyTorch headers) and `ctypes` loads the
+result: one `nvcc -c` per source, all started together, then one link into
+a shared library.  The library goes to `build/kernels/` at the root of the
 checkout; its name carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is reused.
 
@@ -21,10 +22,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = (CSRC / "norm_kernels.cu",)
+SOURCES = (CSRC / "norm_kernels.cu", CSRC / "stem_kernels.cu")
 BUILD_DIR = ROOT / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -49,24 +50,37 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless this version is built already; return the
-    library's path.  The ptxas report (registers, shared memory, spills) is
-    kept beside it as `<library>.log`."""
+    library's path.  The compiler's report (ptxas: registers, shared memory,
+    spills) is kept beside it as `<library>.log`."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *FLAGS, "-o", tmp, *map(str, SOURCES)]
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-                   f"[{time.perf_counter() - t0:.1f} s]\n")
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
+    cmds = [[nvcc, *FLAGS, "-c", "-o", str(tmp / f"{src.stem}.o"), str(src)]
+            for src in SOURCES]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    results = [(cmd, p.communicate()[0], p.returncode)
+               for cmd, p in zip(cmds, procs)]
+    link = [nvcc, "-shared", "-o", str(tmp / "lib.so"),
+            *(str(tmp / f"{src.stem}.o") for src in SOURCES)]
+    if all(rc == 0 for _, _, rc in results):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.stdout + proc.stderr, proc.returncode))
+    log = "".join(f"$ {' '.join(cmd)}\n{text}" for cmd, text, _ in results)
+    out.with_suffix(".log").write_text(
+        f"{log}[{time.perf_counter() - t0:.1f} s]\n")
+    failed = [(cmd, text, rc) for cmd, text, rc in results if rc != 0]
+    if failed:
+        shutil.rmtree(tmp)
+        cmd, text, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
+    os.replace(tmp / "lib.so", out)   # atomic: a concurrent build sees all or nothing
+    shutil.rmtree(tmp)
     return out
 
 

@@ -1,5 +1,6 @@
-"""ctypes wrappers of the hand-written Hopper norm kernels, forward and
-backward.
+"""ctypes wrappers of the hand-written Hopper kernels, forward and
+backward: the norm kernels and the fused 7x7 stem (`stem_conv7`,
+`stem_conv7_bwd`, at the end).
 
 Each wrapper takes CUDA tensors only: an NCHW activation in channels_last
 memory (NHWC bytes), bf16 or fp32, and fp32 per-channel parameters.  It
@@ -15,8 +16,9 @@ per channel; the LayerNorm's 1/(std+eps) per sample, at channel 0).  The
 backward takes it back, so it never recomputes the moments.  Autograd is
 `ops/norms.py`'s business: these wrappers take and return plain tensors.
 
-The sources are `dwcgan_tpu_torch/csrc/norm_kernels.cu`; the library is
-built with nvcc at first use (`build.py`).
+The sources are `dwcgan_tpu_torch/csrc/norm_kernels.cu` and
+`stem_kernels.cu`; the library is built with nvcc at first use
+(`build.py`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from dwcgan_tpu_torch.ops.cuda import build
 
 LAUNCHES = {"instance_norm": 0, "adain": 0, "adain_residual": 0,
             "layer_norm_ref": 0, "instance_norm_bwd": 0, "adain_bwd": 0,
-            "adain_residual_bwd": 0, "layer_norm_ref_bwd": 0}
+            "adain_residual_bwd": 0, "layer_norm_ref_bwd": 0,
+            "stem_conv7": 0, "stem_conv7_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
@@ -57,6 +60,12 @@ _SIGNATURES = {
     # stream
     "dwc_layer_norm_ref_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _P],
+    # x, w2p, y, stats, ws, n, h, w, c, dtype, norm_in, relu, pad, two_pass,
+    # stream
+    "dwc_stem_conv7": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    # x, w2p, g, stats, gc, dxp, dx, dw, ws, n, h, w, c, dtype, norm_in, relu,
+    # pad, dw_blocks, stream
+    "dwc_stem_conv7_bwd": [_P] * 9 + [_I] * 9 + [_P],
 }
 
 
@@ -255,3 +264,111 @@ def layer_norm_ref_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
          dgamma.data_ptr(), dbeta.data_ptr(), ws.data_ptr(), n, hw, c, splits,
          _DTYPE_CODE[x.dtype])
     return dx, dgamma, dbeta
+
+
+# ---------------------------------------------------------------- the stem
+
+_PAD_CODE = {"reflect": 0, "replicate": 1, "zero": 2}
+_STEM_TILE = (8, 32)       # output rows x columns per block (csrc)
+_STEM_MAX_C = 64
+
+
+def _check_stem(name: str, x: torch.Tensor, w2p: torch.Tensor, norm: str,
+                act: str, pad_type: str) -> None:
+    """x: the NCHW image [N, 3, H, W] in channels_last memory; w2p: the
+    packed fp32 weights [148, C] (`ops/stem.py::pack_weights`)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if x.dim() != 4 or x.shape[1] != 3 or x.shape[2] < 4 or x.shape[3] < 4:
+        raise ValueError(f"{name}: expected an image [N, 3, H, W] with H, W "
+                         f">= 4, got {tuple(x.shape)}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{name}: image must be channels_last-contiguous")
+    c = w2p.shape[-1]
+    if w2p.device != x.device or w2p.dtype != torch.float32 or w2p.dim() != 2 \
+            or w2p.shape[0] != 148 or not w2p.is_contiguous() \
+            or w2p.data_ptr() % 16:
+        raise ValueError(f"{name}: packed weights must be contiguous float32 "
+                         f"[148, C] on {x.device}, got {w2p.dtype} "
+                         f"{tuple(w2p.shape)} on {w2p.device}")
+    if c % 8 or not 8 <= c <= _STEM_MAX_C:
+        raise ValueError(f"{name}: {c} output channels not supported (a "
+                         f"multiple of 8, at most {_STEM_MAX_C})")
+    if norm not in ("in", "none") or act not in ("relu", "none") \
+            or pad_type not in _PAD_CODE:
+        raise ValueError(f"{name}: unsupported norm {norm!r}, act {act!r} or "
+                         f"pad_type {pad_type!r}")
+
+
+def _stem_tiles(h: int, w: int) -> int:
+    return -(-h // _STEM_TILE[0]) * -(-w // _STEM_TILE[1])
+
+
+def stem_conv7(x: torch.Tensor, w2p: torch.Tensor, norm: str = "in",
+               act: str = "relu", pad_type: str = "reflect",
+               stats: str = "1pass"):
+    """pad 3 -> 7x7 conv (+ bias) -> instance norm (norm "in") -> ReLU (act
+    "relu") of the NCHW channels_last image x [N, 3, H, W], with the packed
+    weights w2p [148, C].  Returns (y [N, C, H, W] channels_last in x.dtype,
+    fp32 [N, 2, C] statistics (mean, rstd) or None without the norm)."""
+    name = "stem_conv7"
+    _check_stem(name, x, w2p, norm, act, pad_type)
+    if stats not in ("1pass", "2pass"):
+        raise ValueError(f"{name}: stats must be 1pass or 2pass, got {stats!r}")
+    n, _, h, w = x.shape
+    c = w2p.shape[1]
+    y = torch.empty((n, c, h, w), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    norm_in = norm == "in"
+    st = _f32(n, 2, c, like=x) if norm_in else None
+    ws = _f32(2 * n * _stem_tiles(h, w) * c, like=x) if norm_in else None
+    _run(name, _lib().dwc_stem_conv7, x.device, x.data_ptr(), w2p.data_ptr(),
+         y.data_ptr(), _ptr(st), _ptr(ws), n, h, w, c, _DTYPE_CODE[x.dtype],
+         int(norm_in), int(act == "relu"), _PAD_CODE[pad_type],
+         int(stats == "2pass"))
+    return y, st
+
+
+def stem_conv7_bwd(x: torch.Tensor, w2p: torch.Tensor, g: torch.Tensor,
+                   stats, norm: str = "in", act: str = "relu",
+                   pad_type: str = "reflect", need_dx: bool = True):
+    """The backward of `stem_conv7` for the incoming gradient g [N, C, H, W]
+    (channels_last, x's dtype), with the forward's statistics (norm "in").
+    Returns (dx [N, 3, H, W] channels_last in x.dtype, or None when
+    `need_dx` is off and no dX work is done; dw [C, 3, 7, 7] OIHW fp32;
+    db [C] fp32)."""
+    name = "stem_conv7_bwd"
+    _check_stem(name, x, w2p, norm, act, pad_type)
+    n, _, h, w = x.shape
+    c = w2p.shape[1]
+    _check_activation(name, g)
+    if tuple(g.shape) != (n, c, h, w) or g.dtype != x.dtype \
+            or g.device != x.device:
+        raise ValueError(f"{name}: gradient must be {x.dtype} [{n}, {c}, {h}, "
+                         f"{w}] on {x.device}, got {g.dtype} {tuple(g.shape)}")
+    norm_in = norm == "in"
+    if norm_in:
+        _check_param(name, x, stats, (n, 2, c))
+    relu = act == "relu"
+    gc = torch.empty_like(g) if (norm_in or relu) else None
+    dx = dxp = None
+    if need_dx:
+        dx = torch.empty_like(x, memory_format=torch.channels_last)
+        dxp = torch.empty((n, h + 6, w + 6, 3), dtype=x.dtype, device=x.device)
+    # dW partial sums: about 2 blocks per SM, each over a strided set of
+    # 4 x 32 chunks of one sample
+    chunks = -(-h // 4) * -(-w // 32)
+    dw_blocks = max(1, min(chunks, -(-2 * _sm_count(x.device.index or 0) // n)))
+    dw2 = _f32(148, c, like=x)
+    ws = _f32(2 * n * _stem_tiles(h, w) * c + 2 * n * c
+              + n * dw_blocks * 148 * c, like=x)
+    _run(name, _lib().dwc_stem_conv7_bwd, x.device, x.data_ptr(),
+         w2p.data_ptr(), g.data_ptr(), _ptr(stats if norm_in else None),
+         _ptr(gc), _ptr(dxp), _ptr(dx), dw2.data_ptr(), ws.data_ptr(), n, h, w,
+         c, _DTYPE_CODE[x.dtype], int(norm_in), int(relu), _PAD_CODE[pad_type],
+         dw_blocks)
+    dw = dw2[:147].view(7, 7, 3, c).permute(3, 2, 0, 1).contiguous()
+    return dx, dw, dw2[147].clone()

@@ -190,7 +190,7 @@ def _on_card(x: torch.Tensor) -> bool:
         return False
     if x.device.type == "cuda":
         return True
-    raise ValueError(f"no norm path for device {x.device}")
+    raise ValueError(f"no kernel path for device {x.device}")
 
 
 def _f32(p: torch.Tensor) -> torch.Tensor:

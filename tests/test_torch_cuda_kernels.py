@@ -171,3 +171,88 @@ def test_backward_kernel_matches_plain(card, op, relu, shape, dtype, stats):
         scale = float(w.abs().max())
         err = float((a.float() - w.float()).abs().max())
         assert err <= rel * scale + 1e-6, (err, scale)
+
+
+# ------------------------------------------------------------------ the stem
+
+from dwcgan_tpu_torch.ops import stem  # noqa: E402
+
+# (N, H, W, C, pad): one flagship shape, and one small ragged shape per pad
+# type (rows and columns not multiples of the 8 x 32 tile)
+STEM_SHAPES = [(16, 128, 128, 64, "reflect"), (2, 13, 37, 8, "reflect"),
+               (3, 9, 40, 16, "replicate"), (2, 21, 6, 24, "zero")]
+# (norm, act, stats): both stats modes where there are statistics
+STEM_MODES = [("in", "relu", "1pass"), ("in", "relu", "2pass"),
+              ("in", "none", "1pass"), ("in", "none", "2pass"),
+              ("none", "relu", "1pass"), ("none", "none", "1pass")]
+
+
+def _stem_inputs(shape, dtype, dev, seed):
+    n, h, w, c, _ = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, h, w, 3, generator=g, device=dev).to(dtype)
+    wt = 0.2 * torch.randn(c, 3, 7, 7, generator=g, device=dev)
+    b = 0.1 * torch.randn(c, generator=g, device=dev)
+    ct = torch.randn(n, h, w, c, generator=g, device=dev).to(dtype)
+    return x, wt, b, ct
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+@pytest.mark.parametrize("norm,act,stats", STEM_MODES)
+def test_stem_kernels_match_plain(card, norm, act, stats, shape, dtype):
+    torch.backends.cudnn.allow_tf32 = False
+    pad = shape[-1]
+    x, w, b, ct = _stem_inputs(shape, dtype, card, 7)
+    before = dict(kernels.LAUNCHES)
+    xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+    y = stem.stem_conv7(xr, wr, br, norm, act, pad, stats)
+    y.backward(ct)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stem_conv7"] == before["stem_conv7"] + 1
+    assert kernels.LAUNCHES["stem_conv7_bwd"] == before["stem_conv7_bwd"] + 1
+    want = stem.stem_conv7_plain(x, w, b, norm, act, pad, stats)
+    err = (y.detach().float() - want.float()).abs()
+    tol = 1e-4 if dtype == torch.float32 else 2 * _ulp(want) + 1e-4
+    assert y.dtype == dtype and bool((err <= tol).all()), float(err.max())
+    # the ReLU mask from the kernel's own output: a value at zero within
+    # rounding must not count as a difference of the backward
+    grads = stem.stem_conv7_bwd_plain(x, w, b, ct, norm, act, pad, stats,
+                                      out=y.detach())
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    # db is row 147 of the one [148, C] weight gradient: measured against the
+    # largest magnitude of that matrix (with the norm, db is zero up to
+    # rounding)
+    wscale = max(float(grads[1].abs().max()), float(grads[2].abs().max()))
+    for name, got, ref in zip(("dx", "dw", "db"), (xr.grad, wr.grad, br.grad), grads):
+        scale = float(ref.abs().max()) if name == "dx" else wscale
+        diff = float((got.float() - ref.float()).abs().max())
+        assert got.dtype == ref.dtype and diff <= rel * scale + 1e-6, (name, diff, scale)
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def test_stem_backward_skips_dx_without_an_image_gradient(card):
+    x, w, b, ct = _stem_inputs((2, 16, 16, 8, "reflect"), torch.float32, card, 8)
+    x2p = stem.pack_weights(w, b, torch.float32)
+    xc = x.permute(0, 3, 1, 2)
+    y, st = kernels.stem_conv7(xc, x2p, "in", "relu", "reflect")
+    dx, dw, db = kernels.stem_conv7_bwd(xc, x2p, ct.permute(0, 3, 1, 2), st,
+                                        "in", "relu", "reflect", need_dx=False)
+    assert dx is None and dw.shape == (8, 3, 7, 7) and db.shape == (8,)
+    wr = w.clone().requires_grad_()
+    stem.stem_conv7(x, wr, b).backward(ct)
+    torch.testing.assert_close(wr.grad, dw, rtol=0, atol=0)
+
+
+def test_stem_wrappers_refuse_what_they_do_not_take(card):
+    x = torch.zeros(2, 3, 16, 16, device=card).contiguous(memory_format=torch.channels_last)
+    w2p = torch.zeros(148, 64, device=card)
+    with pytest.raises(ValueError, match="channels_last"):
+        kernels.stem_conv7(x.contiguous(), w2p)
+    with pytest.raises(ValueError, match="output channels"):
+        kernels.stem_conv7(x, torch.zeros(148, 72, device=card))
+    with pytest.raises(ValueError, match="image"):
+        kernels.stem_conv7(torch.zeros(2, 4, 16, 16, device=card).contiguous(
+            memory_format=torch.channels_last), w2p)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stem_conv7(x.cpu(), w2p)

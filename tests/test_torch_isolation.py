@@ -122,3 +122,34 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_the_build_compiles_every_kernel_source():
+    """Every CUDA source of the port goes into the one library, the stem's
+    included; finding them needs no JAX."""
+    from dwcgan_tpu_torch.ops.cuda import build
+    assert sorted(build.SOURCES) == sorted((PACKAGE / "csrc").glob("*.cu"))
+    assert any(s.name == "stem_kernels.cu" for s in build.SOURCES)
+    assert build.library_path().parent == ROOT / "build" / "kernels"
+
+
+def test_stem_wrappers_take_only_card_tensors():
+    """The stem kernel wrappers raise on a CPU tensor before any library is
+    loaded: nothing falls back to the plain version behind the caller."""
+    from dwcgan_tpu_torch.ops import stem
+    from dwcgan_tpu_torch.ops.cuda import kernels
+    x = torch.zeros(1, 3, 8, 8).contiguous(memory_format=torch.channels_last)
+    w2p = stem.pack_weights(torch.zeros(8, 3, 7, 7), torch.zeros(8), torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stem_conv7(x, w2p)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stem_conv7_bwd(x, w2p, torch.zeros(1, 8, 8, 8), None, "none")
+
+
+def test_stem_generator_defaults_to_the_card(no_card):
+    from dwcgan_tpu_torch.config import load_config
+    from dwcgan_tpu_torch.models.generator import build_generator
+    cfg = load_config(str(ROOT / "configs/smoke.yaml"))
+    cfg.stem_pallas = True
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_generator(cfg, 102)
