@@ -49,7 +49,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    output), then the three pad types at one small ragged shape; kernel,
    eager, plain and library times (the library: cuDNN's `F.conv2d` with
    bias on the reflect-padded image and its backward, without the pad, the
-   norm and the ReLU) beside the bound (bytes or operations);
+   norm and the ReLU) beside the bound (bytes or operations); first it
+   counts the HMMA (tensor-core) instructions in the SASS of the backward's
+   bf16 dW and dX kernels (cuobjdump) and fails if either has none;
 9. serving with `stem_pallas` on: fp32 card vs CPU as phase 3, then bf16 at
    batch 32 with exactly 2 stem, 10 IN, 4 AdaIN, 4 AdaIN-residual and 2
    LayerNorm launches per batch, timed as phase 4;
@@ -65,7 +67,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 The last lines are the `kernels` JSON (nine kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
 forward and backward; a forward kernel's times and `launches` are per
-served batch, with `launches_train` its launches per training step), the
+served batch, with `launches_train` its launches per training step; the
+stem backward's entry carries phase 8's HMMA counts as `hmma`), the
 nvidia-smi line and `{"ok": true, "device": {...}}`.  Without a card it
 exits 1 and prints no result.
 """
@@ -539,6 +542,8 @@ STEM_REPLACES = {
     "stem_conv7_bwd": "dwcgan_tpu/ops/pallas/stem_kernels.py:154",
 }
 STEM_SOURCE = "dwcgan_tpu_torch/csrc/stem_kernels.cu"
+# the stem backward's bf16 contractions, on the tensor cores
+STEM_MMA_KERNELS = ("stem_dw_mma_kernel", "stem_dxp_mma_kernel")
 BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense tensor-core bf16
 
 
@@ -683,9 +688,16 @@ def time_stem(site, dtype, stats, t):
 
 
 def phase_stem():
-    """Phase 8: both stem kernels at every stem site of the stem-on paths,
+    """Phase 8: the HMMA count of each bf16 contraction kernel of the stem
+    backward; both stem kernels at every stem site of the stem-on paths,
     fp32 and bf16, both stats modes where there is a norm; then the three
-    pad types at one small shape.  TF32 off for the plain and library runs."""
+    pad types at one small shape.  TF32 off for the plain and library runs.
+    Returns (rows, HMMA counts)."""
+    hmma = build.hmma_counts(STEM_MMA_KERNELS)
+    log("stem_sass: HMMA instructions in the SASS of the stem backward's bf16 "
+        "kernels " + json.dumps(hmma))
+    if not all(hmma[k] > 0 for k in STEM_MMA_KERNELS):
+        raise AssertionError(f"a bf16 stem contraction has no HMMA: {hmma}")
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     rows = []
@@ -713,7 +725,7 @@ def phase_stem():
                     fwd_max_abs_err=t["fwd_err"], bwd_max_abs_err=t["bwd_err"],
                     bwd_max_rel_err=t["bwd_rel"])))
     torch.backends.cudnn.allow_tf32 = True
-    return rows
+    return rows, hmma
 
 
 # ---------------------------------------------------------------- phases 6, 7
@@ -1003,7 +1015,7 @@ def main() -> int:
     phase_step_fp32()
     train_launches, train_off = phase_train_bf16(card)
 
-    stem_rows = phase_stem()
+    stem_rows, hmma = phase_stem()
     phase_slice_fp32(vocab, stem=True)
     stem_serve_launches, serve_on = phase_serve_bf16(vocab, card, stem=True)
     phase_step_fp32(stem=True)
@@ -1057,7 +1069,7 @@ def main() -> int:
         {"launches_train": stem_train_launches["stem_conv7"]}), source=STEM_SOURCE))
     summary.append(dict(stem_entry(
         "stem_conv7_bwd", "calls_per_step", "training step of 16 with stem_pallas "
-        "on, bf16, 1pass", stem_train_launches["stem_conv7_bwd"], {}),
+        "on, bf16, 1pass", stem_train_launches["stem_conv7_bwd"], {"hmma": hmma}),
         source=STEM_SOURCE))
     if any(k["launches"] == 0 or k.get("launches_train") == 0 for k in summary):
         raise AssertionError("a kernel of the serving or training path never launched")

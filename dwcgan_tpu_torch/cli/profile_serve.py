@@ -18,7 +18,8 @@ and writes (JSON, `--out`):
   device time summed over the kernels run in it; their ratio gives the
   device's idle share;
 - device time per kernel group (this port's norm kernels, convolutions,
-  matrix products, the LSTM, everything else) and the top kernels by name;
+  matrix products, the LSTM, everything else), the top kernels by name, and
+  every kernel of this port by name;
 - the card's name and power limit.
 
 With `--train` it profiles `--batches` training steps of the config's batch
@@ -129,7 +130,11 @@ def main(argv=None) -> dict:
     for name, ms in per_kernel.items():
         groups[_group(name)] += ms
     busy_ms = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:25]
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])
+    top = ranked[:25]
+    # every kernel of this port by name, however small: the split of a
+    # kernel row (e.g. the stem backward's recompute, dW and dX launches)
+    ours = [(k, ms) for k, ms in ranked if "(this port)" in _group(k)]
     n = args.batches
     result = {
         "card": card, "config": args.config, "batch": args.batch,
@@ -142,6 +147,7 @@ def main(argv=None) -> dict:
         "groups_ms_per_batch": {g: ms / n for g, ms in
                                 sorted(groups.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_batch": [[k, ms / n] for k, ms in top],
+        "port_kernels_ms_per_batch": [[k, ms / n] for k, ms in ours],
     }
     print(f"card {card}; {cfg.compute_dtype}, stem_pallas "
           f"{result['stem_pallas']}, batch {args.batch}, "
@@ -152,6 +158,9 @@ def main(argv=None) -> dict:
     for g, ms in result["groups_ms_per_batch"].items():
         print(f"  {g:28s} {ms:9.3f} ms/batch")
     for k, ms in result["top_kernels_ms_per_batch"]:
+        print(f"  {ms:9.3f}  {k[:140]}")
+    print("this port's kernels:")
+    for k, ms in result["port_kernels_ms_per_batch"]:
         print(f"  {ms:9.3f}  {k[:140]}")
     if args.out:
         with open(args.out, "w") as f:

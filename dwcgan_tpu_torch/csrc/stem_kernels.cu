@@ -10,11 +10,50 @@
 // the image (3.1 MB) and write y (67 MB): about 21 us at the data-sheet
 // 3.35 TB/s.  Its arithmetic, 2 * 147 * 64 flops per output pixel, is
 // 9.9 GFLOP: 10 us on the bf16 tensor cores, but about 150 us for the fp32
-// FMA units (67 TFLOP/s), which is what this first kernel uses for both
+// FMA units (67 TFLOP/s), which the conv tile (`conv_tile`) uses for both
 // dtypes.  So the kernel is bound by operations; with the instance norm it
 // computes the conv twice (moments, then apply), three times for "2pass".
 // The backward recomputes the conv once or twice more and does the dW and
 // dX contractions, each as large as the conv: operations again.
+//
+// The backward's two contractions in bf16 run on the tensor cores
+// (`mma.sync.m16n8k16` bf16 x bf16 -> fp32, operands by `ldmatrix`): bf16
+// products are exact in fp32, so they compute what the FMA loop did, summed
+// in another order.  Both are bound by shared-memory loads and their
+// latency, not by the tensor cores, so each design counts shared loads per
+// product and keeps the next operands' global loads in flight:
+//   dW (`stem_dw_mma_kernel`): dw[tap][c] = sum over pixels of
+//     x_patch[pixel][tap] * gc[pixel][c], a GEMM with M = 160 taps (147, the
+//     ones tap for db, 12 zero), N = C, K = pixels 16 at a time.  gc is
+//     staged [pixel][channel] (row stride round16(C) + 8 bf16, so the 8 rows
+//     of an ldmatrix fall on 8 different bank groups) and read transposed
+//     as B by `ldmatrix.trans`; A is the im2col of the bf16 halo taken by
+//     index: the two K-consecutive values of an A register are two
+//     neighbouring halo columns of one tap, which start at an odd column for
+//     odd dc, so the halo is staged twice, the second copy shifted by one
+//     column, and each register is one aligned 32-bit load.  A warp owns 32
+//     taps x all C: per 16 pixels, 8 loads of A and C / 16 ldmatrix.x4 of B
+//     feed 2 * C / 8 products.  Two buffers: while a chunk multiplies, the
+//     next chunk's gc (cp.async) and x halo (registers) are in flight; the
+//     wrapper gives 4 blocks per SM, two full waves of the 2 that fit.
+//     Partials and the ordered reduce as before.
+//   dX (`stem_dxp_mma_kernel`): dxp[pixel][ci] = sum over (tap, c) of
+//     gc[pixel - tap][c] * w[tap][ci][c], an implicit GEMM with M = padded
+//     pixels (16 columns of one row per tile), N = 8 (ci 0..2, 5 zero
+//     columns: still over ten times the FMA rate), K = 49 taps x C, 16
+//     channels of the gc halo per stage.  A is the gc window shifted by the
+//     tap, by `ldmatrix` from a [pixel][16 + 8] halo; B the bf16 weights.  A
+//     warp owns 8 padded rows x 16 columns: one A fragment of halo row j
+//     serves every (row, dr) with row - dr = j, so 14 ldmatrix.x4 feed 56
+//     products per column tap, and the 7 row taps' B sit in registers.  Each
+//     stage issues all its loads at once (the halo by cp.async, the weights
+//     into registers) and waits once.  Not col2im (gc x W into [pixel][147],
+//     then a scatter-add): that needs an intermediate 49 times dX's size and
+//     a shared-memory scatter, where the implicit GEMM writes each dxp value
+//     once from registers.
+// The fp32 path keeps the FMA kernels (`stem_dw_kernel`, `stem_dxp_kernel`):
+// bf16 operands would lose the fp32 checks' 1e-4, and TF32 keeps about
+// three digits.
 //
 // Design.  No padded copy of the image exists: every halo load maps its
 // padded coordinate back onto the image (reflect, replicate, or zero).  A
@@ -40,13 +79,14 @@
 //       without the norm, rounded to the compute dtype (the Pallas rule's
 //       own rounding) and written once;
 //   (c) dW, db: each block sums x-patch * gc over a strided set of 4 x 32
-//       chunks of one sample into its own [148][C] fp32 partial (one lane
-//       per tap, one warp per 8 channels, the bias row against a ones tap);
-//       a last launch sums the partials in a fixed order, so no atomics and
-//       the same result every run;
+//       chunks of one sample into its own [148][C] fp32 partial (fp32: one
+//       lane per tap, one warp per 8 channels; bf16: the GEMM above; the
+//       bias row against a ones tap); a last launch sums the partials in a
+//       fixed order, so no atomics and the same result every run;
 //   (d) when the image needs a gradient: dX of every padded position (a
-//       transposed conv of gc, 16 x 32 positions per block, 8 channels of
-//       gc at a time in shared memory), rounded to the compute dtype as the
+//       transposed conv of gc; fp32: 16 x 32 positions per block, 8
+//       channels of gc at a time in shared memory; bf16: the GEMM above, 16
+//       x 48 positions per block), rounded to the compute dtype as the
 //       Pallas kernel stores it, then folded onto the image by the padding's
 //       adjoint (_unpad_grad): each pixel sums the padded positions that
 //       were copies of it, per axis itself plus its reflections or, for
@@ -55,6 +95,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -535,6 +577,299 @@ __global__ void stem_fold_kernel(const T* __restrict__ dxp, T* __restrict__ dx, 
   for (int ci = 0; ci < 3; ++ci) dx[i * 3 + ci] = from_f<T>(s[ci]);
 }
 
+// ------------------------------------- bf16 dW and dX on the tensor cores
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the
+// rows of matrix i; `.trans` hands out each matrix transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+// d[16 x 8] += a[16 x 16] * b[16 x 8], bf16 operands, fp32 sums.  Lane
+// (grp = lane / 4, tig = lane % 4) holds a: rows grp, grp + 8 x columns
+// 2 tig, 2 tig + 1 (+ 8); b: rows 2 tig, 2 tig + 1 (+ 8) x column grp; d:
+// rows grp, grp + 8 x columns 2 tig, 2 tig + 1.  The lower half of a
+// register is the lower column (a) or row (b).
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared without a register, or 16 zero bytes when
+// !valid (src is then not read but must be a mapped address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// bf16 gc rows of round16(C) + 8 elements: a multiple of 16 bytes, and an
+// odd number of 16-byte groups, so 8 consecutive rows meet 8 bank groups.
+__device__ __forceinline__ int gc_row_stride(int c) { return ((c + 15) & ~15) + 8; }
+
+// dW.  The x halo of a 4 x 32 chunk, 3 x 10 x 38 bf16, twice: at sx[0..]
+// and shifted left by one column at sx[kMwCopy..].  Strides in bf16: a
+// plane of 204 words and a copy of 612 (12 and 4 mod 32 banks) spread the
+// 8 taps that one A load reads over the banks (at most 2-way conflicts:
+// taps dc and dc + 2 sit one word apart).
+constexpr int kMwThreads = 160;               // 5 warps x 32 taps = 160 >= 148
+constexpr int kMwRow = 40, kMwPlane = 408, kMwCopy = 3 * kMwPlane;
+constexpr uint32_t kOnes = 0x3F803F80u;       // two bf16 1.0: the ones tap (db)
+
+constexpr int kMwHalo = 3 * kChunkHaloH * kHaloW;
+constexpr int kMwXLoads = (kMwHalo + kMwThreads - 1) / kMwThreads;
+constexpr int kMwGc = kChunk * (kMaxC + 8);   // bf16 per gc buffer
+
+// Block (j, n) sums over the chunks j, j + gridDim.x, ... of sample n into
+// dw_part[(n * gridDim.x + j)][k][c], as stem_dw_kernel.  Warp w owns the
+// tap tiles 2w, 2w + 1 (16 taps each) and every channel.  Two buffers: the
+// next chunk's gc (cp.async) and x halo (registers) are in flight while
+// this chunk multiplies, so a chunk waits on memory once, not per load.
+__global__ void __launch_bounds__(kMwThreads)
+stem_dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gc,
+                   float* __restrict__ dw_part, Geom g) {
+  __shared__ __align__(16) uint16_t sx[2][2 * kMwCopy];
+  __shared__ __align__(16) uint16_t sg[2][kMwGc];
+  const int n = blockIdx.y, j0 = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int ntiles = g.c / 8, gstride = gc_row_stride(g.c);
+  const int chunks_w = (g.w + kChunkW - 1) / kChunkW;
+  const int chunks = ((g.h + kChunkH - 1) / kChunkH) * chunks_w;
+  // A rows of this lane: taps 16 mt' + grp (+ 8) of its tiles mt' = 2 warp
+  // + mt, as a word offset into sx; a tap past 146 reads offset 0 and keeps
+  // nothing of it (mask 0), then takes the ones (tap 147) or zero
+  int off[2][2];
+  uint32_t mask[2][2], fixed[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int tap = 16 * (2 * warp + mt) + grp + 8 * hi;
+      const int dr = tap / 21, dc = (tap / 3) % 7, ci = tap % 3;
+      const bool real = tap < kTaps;
+      off[mt][hi] = real ? ((dc & 1) * kMwCopy + ci * kMwPlane + dr * kMwRow) / 2 + dc / 2 : 0;
+      mask[mt][hi] = real ? 0xFFFFFFFFu : 0u;
+      fixed[mt][hi] = tap == kTaps ? kOnes : 0u;
+    }
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  const uint16_t* xs = reinterpret_cast<const uint16_t*>(x) + (size_t)n * g.h * g.w * 3;
+  const uint16_t* gs = reinterpret_cast<const uint16_t*>(gc) + (size_t)n * g.h * g.w * g.c;
+  // this lane's ldmatrix.trans row: pixel (lane % 8) + 8 (lane / 8 % 2) of
+  // the 16, channels 8 (lane / 16) on from the n-tile pair's first
+  const uint32_t b_base =
+      smem_u32(&sg[0][((lane % 8) + 8 * ((lane / 8) % 2)) * gstride + 8 * (lane / 16)]);
+  uint16_t xv[kMwXLoads];
+  // start the loads of a chunk: gc into buffer `buf`, the x halo into xv
+  auto fetch = [&](int chunk, int buf) {
+    const int r0 = (chunk / chunks_w) * kChunkH, c0 = (chunk % chunks_w) * kChunkW;
+    for (int i = threadIdx.x; i < kChunk * ntiles; i += kMwThreads) {
+      const int p = i / ntiles, c = (i % ntiles) * 8;
+      const int row = r0 + p / kChunkW, col = c0 + p % kChunkW;
+      const bool in = row < g.h && col < g.w;
+      cp_async16(smem_u32(&sg[buf][p * gstride + c]),
+                 in ? gs + ((size_t)row * g.w + col) * g.c + c : gs, in);
+    }
+#pragma unroll
+    for (int q = 0; q < kMwXLoads; ++q) {
+      const int i = threadIdx.x + q * kMwThreads;
+      const int ci = i / (kChunkHaloH * kHaloW), rem = i % (kChunkHaloH * kHaloW);
+      const int rr = src_index(r0 - 3 + rem / kHaloW, g.h, g.pad);
+      const int cc = src_index(c0 - 3 + rem % kHaloW, g.w, g.pad);
+      xv[q] = (i >= kMwHalo || rr < 0 || cc < 0) ? 0 : xs[((size_t)rr * g.w + cc) * 3 + ci];
+    }
+  };
+  // finish them: the x halo into buffer `buf`, twice (the second copy one
+  // column to the left); wait for this thread's gc copies
+  auto land = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < kMwXLoads; ++q) {
+      const int i = threadIdx.x + q * kMwThreads;
+      if (i >= kMwHalo) break;
+      const int ci = i / (kChunkHaloH * kHaloW), rem = i % (kChunkHaloH * kHaloW);
+      const int hc = rem % kHaloW;
+      const int o = ci * kMwPlane + (rem / kHaloW) * kMwRow + hc;
+      sx[buf][o] = xv[q];
+      if (hc > 0) sx[buf][kMwCopy + o - 1] = xv[q];
+    }
+    cp_async_wait_all();
+  };
+  if (j0 < chunks) {
+    fetch(j0, 0);
+    land(0);
+  }
+  __syncthreads();
+  int buf = 0;
+  for (int chunk = j0; chunk < chunks; chunk += gridDim.x, buf ^= 1) {
+    const bool more = chunk + gridDim.x < chunks;   // the same for the whole block
+    if (more) fetch(chunk + gridDim.x, buf ^ 1);    // buffer buf ^ 1 was consumed before the last barrier
+    const uint32_t* sx32 = reinterpret_cast<const uint32_t*>(sx[buf]);
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 16; ++ks) {   // 16 pixels: chunk row ks / 2, columns 16 (ks % 2) on
+      const int xw = (ks / 2) * (kMwRow / 2) + 8 * (ks % 2) + tig;
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        a[mt][0] = (sx32[off[mt][0] + xw] & mask[mt][0]) | fixed[mt][0];
+        a[mt][1] = (sx32[off[mt][1] + xw] & mask[mt][1]) | fixed[mt][1];
+        a[mt][2] = (sx32[off[mt][0] + xw + 4] & mask[mt][0]) | fixed[mt][0];
+        a[mt][3] = (sx32[off[mt][1] + xw + 4] & mask[mt][1]) | fixed[mt][1];
+      }
+      const uint32_t bk = b_base + (buf * kMwGc + ks * 16 * gstride) * 2;
+#pragma unroll
+      for (int nt = 0; nt < 8; nt += 2) {
+        if (nt >= ntiles) break;
+        uint32_t b[4];
+        if (nt + 1 < ntiles) ldsm_x4_t(bk + nt * 16, b);   // 8 channels: 16 bytes
+        else ldsm_x2_t(bk + nt * 16, b);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][nt], a[mt], b[0], b[1]);
+          if (nt + 1 < ntiles) mma_bf16(acc[mt][nt + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+    if (more) land(buf ^ 1);
+    __syncthreads();
+  }
+  float* dp = dw_part + ((size_t)n * gridDim.x + j0) * kRowsW * g.c;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int tap = 16 * (2 * warp + mt) + grp + 8 * hi;
+      if (tap > kTaps) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        if (nt < ntiles)
+          *reinterpret_cast<float2*>(dp + (size_t)tap * g.c + 8 * nt + 2 * tig) =
+              make_float2(acc[mt][nt][2 * hi], acc[mt][nt][2 * hi + 1]);
+    }
+}
+
+// dX.  A block owns 16 padded rows x 48 padded columns of one sample; warp
+// (wr, wc) of its 2 x 3 owns rows 8 wr.. x columns 16 wc.. .  The gc halo
+// of 22 x 54 pixels x 16 channels sits at [pixel][kMxPix] (48 bytes: 8
+// consecutive pixels of an ldmatrix meet 8 bank groups), the 16 channels'
+// weights at [tap * 3 + ci][kMxPix].  Dynamic shared memory (62.6 KB).
+constexpr int kMxH = 16, kMxW = 48, kMxHaloH = kMxH + 6, kMxHaloW = kMxW + 6;
+constexpr int kMxCh = 16, kMxPix = 24, kMxThreads = 192;
+constexpr int kMxSmem = (kMxHaloH * kMxHaloW + kTaps) * kMxPix * 2;
+constexpr int kMxWLoads = (kTaps * kMxCh / 2 + kMxThreads - 1) / kMxThreads;
+
+__global__ void __launch_bounds__(kMxThreads)
+stem_dxp_mma_kernel(const __nv_bfloat16* __restrict__ gc, const float* __restrict__ w2p,
+                    __nv_bfloat16* __restrict__ dxp, Geom g) {
+  extern __shared__ __align__(16) uint16_t mx_smem[];
+  uint16_t* sh = mx_smem;
+  uint16_t* sb = mx_smem + kMxHaloH * kMxHaloW * kMxPix;
+  const int hp = g.h + 6, wp = g.w + 6;
+  const int tiles_w = (wp + kMxW - 1) / kMxW;
+  const int n = blockIdx.y;
+  const int r0 = (blockIdx.x / tiles_w) * kMxH, c0 = (blockIdx.x % tiles_w) * kMxW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp / 3, wc = warp % 3, grp = lane / 4, tig = lane % 4;
+  const uint16_t* gs = reinterpret_cast<const uint16_t*>(gc) + (size_t)n * g.h * g.w * g.c;
+  float acc[8][4];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+  // this lane's ldmatrix row: output column 16 wc + lane % 16 of the tile
+  // at column tap 0 (halo column + 6), channels 8 (lane / 16); halo row 8 wr
+  const uint32_t a_base =
+      smem_u32(sh + (8 * wr * kMxHaloW + 16 * wc + lane % 16 + 6) * kMxPix + 8 * (lane / 16));
+  const int brow = grp < 3 ? grp : 0;   // weights of ci = grp; columns 3..7 are zero
+  for (int cb = 0; cb < g.c; cb += kMxCh) {
+    __syncthreads();   // the previous stage is consumed
+    // every load of the stage in flight at once: the halo by cp.async, the
+    // weights (pairs of channels) into registers, rounded to bf16 (exact)
+    for (int i = threadIdx.x; i < kMxHaloH * kMxHaloW * 2; i += kMxThreads) {
+      const int pix = i / 2, ch = cb + 8 * (i % 2);
+      const int row = r0 - 6 + pix / kMxHaloW, col = c0 - 6 + pix % kMxHaloW;
+      const bool in = row >= 0 && row < g.h && col >= 0 && col < g.w && ch < g.c;
+      cp_async16(smem_u32(sh + pix * kMxPix + 8 * (i % 2)),
+                 in ? gs + ((size_t)row * g.w + col) * g.c + ch : gs, in);
+    }
+    float2 wv[kMxWLoads];
+#pragma unroll
+    for (int q = 0; q < kMxWLoads; ++q) {
+      const int i = threadIdx.x + q * kMxThreads, c = cb + 2 * (i % (kMxCh / 2));
+      wv[q] = (i < kTaps * kMxCh / 2 && c < g.c)
+                  ? *reinterpret_cast<const float2*>(w2p + (i / (kMxCh / 2)) * g.c + c)
+                  : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int q = 0; q < kMxWLoads; ++q) {
+      const int i = threadIdx.x + q * kMxThreads;
+      if (i < kTaps * kMxCh / 2)
+        *reinterpret_cast<__nv_bfloat162*>(sb + (i / (kMxCh / 2)) * kMxPix + 2 * (i % (kMxCh / 2))) =
+            __floats2bfloat162_rn(wv[q].x, wv[q].y);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll 1
+    for (int dc = 0; dc < 7; ++dc) {
+      uint32_t b[7][2];
+#pragma unroll
+      for (int dr = 0; dr < 7; ++dr) {
+        const uint32_t* wp32 =
+            reinterpret_cast<const uint32_t*>(sb + ((dr * 7 + dc) * 3 + brow) * kMxPix) + tig;
+        b[dr][0] = grp < 3 ? wp32[0] : 0u;
+        b[dr][1] = grp < 3 ? wp32[4] : 0u;
+      }
+      // gc row r0 - 6 + 8 wr + jj meets output row 8 wr + p at dr = p + 6 - jj
+      const uint32_t a_dc = a_base - dc * kMxPix * 2;
+#pragma unroll
+      for (int jj = 0; jj < 14; ++jj) {
+        uint32_t a[4];
+        ldsm_x4(a_dc + jj * kMxHaloW * kMxPix * 2, a);
+#pragma unroll
+        for (int p = 0; p < 8; ++p)
+          if (jj >= p && jj <= p + 6) mma_bf16(acc[p], a, b[p + 6 - jj][0], b[p + 6 - jj][1]);
+      }
+    }
+  }
+  // lane: ci 2 tig, 2 tig + 1 of columns grp, grp + 8; ci 0..2 are real
+  if (2 * tig >= 3) return;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int row = r0 + 8 * wr + p;
+    if (row >= hp) continue;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int col = c0 + 16 * wc + grp + 8 * hi;
+      if (col >= wp) continue;
+      __nv_bfloat16* o = dxp + (((size_t)n * hp + row) * wp + col) * 3 + 2 * tig;
+      o[0] = __float2bfloat16_rn(acc[p][2 * hi]);
+      if (tig == 0) o[1] = __float2bfloat16_rn(acc[p][2 * hi + 1]);
+    }
+  }
+}
+
 // ------------------------------------------------------------- launches
 
 int make_geom(int n, int h, int w, int c, int pad, int relu, Geom* g) {
@@ -596,14 +931,36 @@ int backward(const void* x, const float* w2p, const void* gr, const float* stats
     tile_launch<T, kGradRelu>(x, w2p, gr, nullptr, nullptr, gc, nullptr, nullptr, g, st);
     gcv = gc;
   }
-  stem_dw_kernel<T><<<dim3(dw_blocks, g.n), 32 * (g.c / 8), 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gcv), dwp, g);
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (kBf16)
+    stem_dw_mma_kernel<<<dim3(dw_blocks, g.n), kMwThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(gcv), dwp, g);
+  else
+    stem_dw_kernel<T><<<dim3(dw_blocks, g.n), 32 * (g.c / 8), 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(gcv), dwp, g);
   const int size = kRowsW * g.c;
   stem_dw_reduce_kernel<<<(size + 255) / 256, 256, 0, st>>>(dwp, dw, g.n * dw_blocks, size);
   if (dx) {
-    const int tiles = ((g.h + 6 + kDxH - 1) / kDxH) * ((g.w + 6 + kDxW - 1) / kDxW);
-    stem_dxp_kernel<T><<<dim3(tiles, g.n), 64, 0, st>>>(
-        static_cast<const T*>(gcv), w2p, static_cast<T*>(dxp), g);
+    if constexpr (kBf16) {
+      // above 48 KB: allowed once per device, outside any stream capture
+      // (the first call of a process runs before one)
+      static unsigned allowed = 0;
+      int dev = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (!err && dev < 32 && !(allowed >> dev & 1u)) {
+        err = cudaFuncSetAttribute(stem_dxp_mma_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, kMxSmem);
+        if (!err) allowed |= 1u << dev;
+      }
+      if (err) return (int)err;
+      const int tiles = ((g.h + 6 + kMxH - 1) / kMxH) * ((g.w + 6 + kMxW - 1) / kMxW);
+      stem_dxp_mma_kernel<<<dim3(tiles, g.n), kMxThreads, kMxSmem, st>>>(
+          static_cast<const T*>(gcv), w2p, static_cast<T*>(dxp), g);
+    } else {
+      const int tiles = ((g.h + 6 + kDxH - 1) / kDxH) * ((g.w + 6 + kDxW - 1) / kDxW);
+      stem_dxp_kernel<T><<<dim3(tiles, g.n), 64, 0, st>>>(
+          static_cast<const T*>(gcv), w2p, static_cast<T*>(dxp), g);
+    }
     const size_t pixels = (size_t)g.n * g.h * g.w;
     stem_fold_kernel<T><<<(unsigned)((pixels + 255) / 256), 256, 0, st>>>(
         static_cast<const T*>(dxp), static_cast<T*>(dx), g);

@@ -84,5 +84,37 @@ def build() -> Path:
     return out
 
 
+def count_hmma(sass: str, names) -> dict:
+    """HMMA (tensor-core) instructions in `cuobjdump --dump-sass` output, per
+    kernel: {name: count} summed over the functions whose mangled name
+    contains `name` (0 where none does)."""
+    counts = {name: 0 for name in names}
+    current = ()
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            current = [name for name in names if name in fn]
+            continue
+        # "        /*0a30*/   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;", maybe
+        # with a predicate ("@P0 ") before the opcode
+        tokens = line.split("*/", 1)[-1].split() if "*/" in line else []
+        if tokens and tokens[0].startswith("@"):
+            tokens = tokens[1:]
+        if tokens and tokens[0].startswith("HMMA"):
+            for name in current:
+                counts[name] += 1
+    return counts
+
+
+def hmma_counts(names) -> dict:
+    """`count_hmma` over the built library's SASS, by the cuobjdump beside
+    `_nvcc()` (the same toolkit that built it)."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass", str(build())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return count_hmma(sass, names)
+
+
 if __name__ == "__main__":
     print(build())

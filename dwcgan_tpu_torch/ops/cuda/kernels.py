@@ -358,10 +358,12 @@ def stem_conv7_bwd(x: torch.Tensor, w2p: torch.Tensor, g: torch.Tensor,
     if need_dx:
         dx = torch.empty_like(x, memory_format=torch.channels_last)
         dxp = torch.empty((n, h + 6, w + 6, 3), dtype=x.dtype, device=x.device)
-    # dW partial sums: about 2 blocks per SM, each over a strided set of
-    # 4 x 32 chunks of one sample
+    # dW partial sums: each block over a strided set of 4 x 32 chunks of one
+    # sample; about 2 blocks per SM for the fp32 kernel, 4 for the bf16 one
+    # (2 fit on an SM at once: two full waves)
     chunks = -(-h // 4) * -(-w // 32)
-    dw_blocks = max(1, min(chunks, -(-2 * _sm_count(x.device.index or 0) // n)))
+    per_sm = 4 if x.dtype == torch.bfloat16 else 2
+    dw_blocks = max(1, min(chunks, -(-per_sm * _sm_count(x.device.index or 0) // n)))
     dw2 = _f32(148, c, like=x)
     ws = _f32(2 * n * _stem_tiles(h, w) * c + 2 * n * c
               + n * dw_blocks * 148 * c, like=x)

@@ -177,10 +177,14 @@ def test_backward_kernel_matches_plain(card, op, relu, shape, dtype, stats):
 
 from dwcgan_tpu_torch.ops import stem  # noqa: E402
 
-# (N, H, W, C, pad): one flagship shape, and one small ragged shape per pad
-# type (rows and columns not multiples of the 8 x 32 tile)
+# (N, H, W, C, pad): one flagship shape, and small ragged shapes of each pad
+# type (rows and columns not multiples of the 8 x 32 tile, nor of the bf16
+# dX kernel's 16 x 48 padded tile); C 8, 24, 40, 56 leave half a 16-channel
+# step of the bf16 kernels empty; N 1
 STEM_SHAPES = [(16, 128, 128, 64, "reflect"), (2, 13, 37, 8, "reflect"),
-               (3, 9, 40, 16, "replicate"), (2, 21, 6, 24, "zero")]
+               (3, 9, 40, 16, "replicate"), (2, 21, 6, 24, "zero"),
+               (1, 45, 70, 40, "reflect"), (1, 11, 53, 56, "replicate")]
+MMA_KERNELS = ("stem_dw_mma_kernel", "stem_dxp_mma_kernel")
 # (norm, act, stats): both stats modes where there are statistics
 STEM_MODES = [("in", "relu", "1pass"), ("in", "relu", "2pass"),
               ("in", "none", "1pass"), ("in", "none", "2pass"),
@@ -242,6 +246,30 @@ def test_stem_backward_skips_dx_without_an_image_gradient(card):
     wr = w.clone().requires_grad_()
     stem.stem_conv7(x, wr, b).backward(ct)
     torch.testing.assert_close(wr.grad, dw, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("norm,act", [("in", "relu"), ("none", "relu")])
+def test_stem_bf16_backward_is_the_same_every_run(card, norm, act):
+    """No atomics: two bf16 backward calls on the same inputs give the same
+    bits in dx, dw and db."""
+    x, w, b, ct = _stem_inputs((3, 40, 70, 64, "reflect"), torch.bfloat16, card, 9)
+    w2p = stem.pack_weights(w, b, torch.bfloat16)
+    xc, gc = x.permute(0, 3, 1, 2), ct.permute(0, 3, 1, 2)
+    _, st = kernels.stem_conv7(xc, w2p, norm, act, "reflect")
+    first = kernels.stem_conv7_bwd(xc, w2p, gc, st, norm, act, "reflect")
+    second = kernels.stem_conv7_bwd(xc, w2p, gc, st, norm, act, "reflect")
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    for a, c in zip(first, second):
+        assert torch.equal(bits(a), bits(c))
+
+
+def test_stem_bf16_contractions_run_on_the_tensor_cores(card):
+    """The bf16 dW and dX kernels of the built library hold HMMA (tensor
+    core) instructions: cuobjdump of the same toolkit that built it."""
+    from dwcgan_tpu_torch.ops.cuda import build
+    counts = build.hmma_counts(MMA_KERNELS)
+    assert all(counts[k] > 0 for k in MMA_KERNELS), counts
 
 
 def test_stem_wrappers_refuse_what_they_do_not_take(card):

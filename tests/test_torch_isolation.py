@@ -133,6 +133,25 @@ def test_the_build_compiles_every_kernel_source():
     assert build.library_path().parent == ROOT / "build" / "kernels"
 
 
+def test_hmma_counts_read_each_kernels_own_instructions():
+    """The tensor-core check counts HMMA lines per function of cuobjdump's
+    listing (predicated ones too), and 0 for a kernel it does not find."""
+    from dwcgan_tpu_torch.ops.cuda import build
+    sass = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_118stem_dw_mma_kernelEPK13__nv_bfloat16S2_Pf4Geom
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0a30*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0a40*/               @P0 HMMA.16816.F32.BF16 R16, R8, R14, R16 ;
+\t\tFunction : _ZN12_GLOBAL__N_114stem_dw_kernelIfEEvPKT_S3_Pf4Geom
+        /*0010*/                   FFMA R4, R8, R12, R4 ;
+"""
+    names = ("stem_dw_mma_kernel", "stem_dw_kernel", "stem_dxp_mma_kernel")
+    assert build.count_hmma(sass, names) == {
+        "stem_dw_mma_kernel": 2, "stem_dw_kernel": 0, "stem_dxp_mma_kernel": 0}
+
+
 def test_stem_wrappers_take_only_card_tensors():
     """The stem kernel wrappers raise on a CPU tensor before any library is
     loaded: nothing falls back to the plain version behind the caller."""
