@@ -98,6 +98,12 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = a;
 }
 
+// v as a tensor of T holds it: rounded to bf16 and back, or fp32 as it is
+template <typename T> __device__ __forceinline__ float rounded(float v) { return v; }
+template <> __device__ __forceinline__ float rounded<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // activation [n, hw, c] (NHWC), cut into `splits` chunks of `rows` rows
 struct Geom {
   int n, hw, c, splits, rows;
@@ -289,7 +295,9 @@ apply_kernel(const T* __restrict__ x, const float* __restrict__ mul,
       float t = (v[i] - mean[i]) * f[i];
       if (kAffine != kNoAffine) t = t * sc[i] + bi[i];
       if (kRelu) t = fmaxf(t, 0.f);
-      if (kResidual) t += rv[i];
+      // x + AdaIN(y) with AdaIN(y) already in T, as the reference adds
+      // two tensors of the compute dtype: T rounds twice
+      if (kResidual) t = rounded<T>(t) + rv[i];
       o[i] = t;
     }
     store16(y + off, o);

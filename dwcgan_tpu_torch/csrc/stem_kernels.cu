@@ -10,18 +10,30 @@
 // the image (3.1 MB) and write y (67 MB): about 21 us at the data-sheet
 // 3.35 TB/s.  Its arithmetic, 2 * 147 * 64 flops per output pixel, is
 // 9.9 GFLOP: 10 us on the bf16 tensor cores, but about 150 us for the fp32
-// FMA units (67 TFLOP/s), which the conv tile (`conv_tile`) uses for both
-// dtypes.  So the kernel is bound by operations; with the instance norm it
-// computes the conv twice (moments, then apply), three times for "2pass".
-// The backward recomputes the conv once or twice more and does the dW and
-// dX contractions, each as large as the conv: operations again.
+// FMA units (67 TFLOP/s).  With the instance norm it computes the conv
+// twice (moments, then apply), three times for "2pass"; the backward
+// recomputes the conv once or twice more and does the dW and dX
+// contractions, each as large as the conv.  So fp32, on the FMA units, is
+// bound by operations; bf16, on the tensor cores, by bytes only if the
+// shared-memory traffic that feeds them keeps up.
 //
-// The backward's two contractions in bf16 run on the tensor cores
-// (`mma.sync.m16n8k16` bf16 x bf16 -> fp32, operands by `ldmatrix`): bf16
-// products are exact in fp32, so they compute what the FMA loop did, summed
-// in another order.  Both are bound by shared-memory loads and their
-// latency, not by the tensor cores, so each design counts shared loads per
-// product and keeps the next operands' global loads in flight:
+// In bf16 the conv tile and the backward's two contractions run on the
+// tensor cores (`mma.sync.m16n8k16` bf16 x bf16 -> fp32, operands by 32-bit
+// loads or `ldmatrix`): bf16 products are exact in fp32, so they compute
+// what the FMA loops do, summed in another order.  All three are bound by
+// shared-memory loads and their latency, not by the tensor cores, so each
+// design counts shared loads per product:
+//   the conv tile (`stem_tile_mma_kernel`, every pass): an implicit GEMM
+//     with M = the tile's 256 pixels, N = C, K = 168 (taps in slots of 8
+//     per (ci, dr), dc = 7 zero), the bias the accumulator's start.  An A
+//     register is two neighbouring halo columns of one row, from a bf16
+//     halo staged twice (the second copy shifted by one column: every
+//     register one aligned 32-bit load, as in dW below); B the weights,
+//     staged [c][k] per block from the packed fp32 rows and read by
+//     `ldmatrix`.  A warp owns one tile row (two m16 tiles) x all C: per 16
+//     products, 8 loads of A and 4 ldmatrix.x4 of B.  The epilogue works in
+//     the fragment layout; per-tile partial sums go over the lanes by
+//     shuffles and over the warps in order through shared memory.
 //   dW (`stem_dw_mma_kernel`): dw[tap][c] = sum over pixels of
 //     x_patch[pixel][tap] * gc[pixel][c], a GEMM with M = 160 taps (147, the
 //     ones tap for db, 12 zero), N = C, K = pixels 16 at a time.  gc is
@@ -51,18 +63,19 @@
 //     then a scatter-add): that needs an intermediate 49 times dX's size and
 //     a shared-memory scatter, where the implicit GEMM writes each dxp value
 //     once from registers.
-// The fp32 path keeps the FMA kernels (`stem_dw_kernel`, `stem_dxp_kernel`):
-// bf16 operands would lose the fp32 checks' 1e-4, and TF32 keeps about
-// three digits.
+// The fp32 path keeps the FMA kernels (`stem_tile_kernel`, `stem_dw_kernel`,
+// `stem_dxp_kernel`): bf16 operands would lose the fp32 checks' 1e-4, and
+// TF32 keeps about three digits.
 //
 // Design.  No padded copy of the image exists: every halo load maps its
 // padded coordinate back onto the image (reflect, replicate, or zero).  A
 // block owns an output tile of 8 rows x 32 columns of one sample and all C
-// channels (C a multiple of 8, at most 64): one warp per group of 8
-// channels, one lane per column, each thread 8 rows x 8 channels of fp32
-// accumulators.  The 3 x 14 x 38 halo and the packed [148][C] weights (the
-// bias as row 147, every value already rounded to the compute dtype by the
-// wrapper) sit in shared memory; for one (input channel, column tap) a
+// channels (C a multiple of 8, at most 64).  The fp32 tile (`conv_tile`):
+// one warp per group of 8 channels, one lane per column, each thread 8 rows
+// x 8 channels of fp32 accumulators.  The 3 x 14 x 38 halo and the packed
+// [148][C] weights (the bias as row 147, every value already rounded to the
+// compute dtype by the wrapper) sit in shared memory; for one (input
+// channel, column tap) a
 // thread loads 14 halo values once and reuses them for the 7 row taps, and
 // each weight load is a broadcast.  Every pass computes the conv tile with
 // the same code in the same order, so its fp32 values are the same each
@@ -124,35 +137,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
-// 8 consecutive channels
+// 8 consecutive fp32 channels
 __device__ __forceinline__ void load8(const float* p, float* v) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 a = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
 __device__ __forceinline__ void store8(float* p, const float* v) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
-  uint4 a;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&a);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = a;
-}
-
 // The image index that padded index i (image coordinates, -3 <= i < n + 3)
 // reads, or -1 for a zero.  Outside that range (the ragged edge of a tile)
 // it is -1 too: no output there is kept.
@@ -240,7 +235,8 @@ enum Mode {
   kGradRelu = 6,   // gc = g * [conv > 0]
 };
 
-// One output tile per block: stage, conv, then the mode's epilogue.
+// One output tile per block (fp32; bf16 runs stem_tile_mma_kernel): stage,
+// conv, then the mode's epilogue.
 // stats [n][2][c] (mean, rstd); gst [n][2][c] (mean g', mean g' xh);
 // part_a, part_b [n][tiles][c].
 template <typename T, int kMode>
@@ -589,6 +585,10 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
 __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
@@ -870,6 +870,244 @@ stem_dxp_mma_kernel(const __nv_bfloat16* __restrict__ gc, const float* __restric
   }
 }
 
+// ------------------------------------ bf16 conv tile on the tensor cores
+
+// The conv of an 8 x 32 tile as an implicit GEMM: M = the 256 pixels, N = C
+// (n8 tiles), K = 168 taps, 16 at a time.  K runs k = (ci * 7 + dr) * 8 + dc:
+// 8 slots per (input channel, row tap), dc = 7 and k >= 168 zero weights, so
+// a k16 step is two (ci, dr) pairs and each A register two neighbouring halo
+// columns dc, dc + 1 of one row.  The bias is the accumulator's start, as in
+// `conv_tile`.  Warp w owns image row w of the tile (two m16 tiles, columns
+// 0..15 and 16..31) x every channel: per k16 step 8 32-bit loads of A and
+// C / 16 ldmatrix.x4 of B feed C / 4 products.
+constexpr int kMtThreads = 256;               // 8 warps, one per tile row
+constexpr int kMtK = 168, kMtKSteps = 11;     // 21 (ci, dr) pairs of 8; 176 / 16
+constexpr int kMtBStride = 184;               // bf16 per weight row: 23 x 16 bytes, odd
+// The bf16 halo, 3 planes x 14 rows x 40 columns (columns 38, 39 zero), as
+// 32-bit words, twice: copy 0 as is, copy 1 shifted left by one column, so
+// that a pair starting at an odd column is one aligned word of copy 1.  A
+// copy of 848 words (16 mod 32 banks) puts the two copies' 7-word windows of
+// one A load on different banks.
+constexpr int kMtRowW = 20, kMtPlaneW = kHaloH * kMtRowW, kMtCopyW = 848;
+constexpr int kMtHaloCols = 2 * kMtRowW;
+constexpr int kMtWBatch = 7;                  // 84 K pairs x 64 channels = 3 batches of 256 x 7
+
+// One output tile per block, as stem_tile_kernel: stage, conv on the tensor
+// cores, then the same epilogue per mode in the fragment layout (lane: tile
+// columns 16 h + grp and + 8, channels 8 nt + 2 tig and + 1).  The per-tile
+// partials are summed over a lane's pixels, then over the 8 lanes of a
+// channel pair by shuffles, then over the 8 warps in order through shared
+// memory: the same [n][tiles][c] arrays, no atomics.
+template <int kMode>
+__global__ void __launch_bounds__(kMtThreads)
+stem_tile_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w2p,
+                     const __nv_bfloat16* __restrict__ gr, const float* __restrict__ stats,
+                     const float* __restrict__ gst, __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ part_a, float* __restrict__ part_b, Geom g) {
+  __shared__ __align__(16) uint16_t sb[kMaxC * kMtBStride];     // weights [c][k]
+  __shared__ __align__(16) uint32_t sx[2 * kMtCopyW];           // the halo, twice
+  __shared__ float s_bias[kMaxC], s_mean[kMaxC], s_rstd[kMaxC], s_mg[kMaxC], s_mgx[kMaxC];
+  __shared__ float s_red[2][8][kMaxC];
+  const int tile = blockIdx.x, n = blockIdx.y;
+  const int r0 = (tile / g.tiles_w) * kTileH, c0 = (tile % g.tiles_w) * kTileW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int ntiles = g.c / 8;
+
+  // weights: item = (K pair kp, channel c), the bf16 pair [c][2 kp], [c][2 kp
+  // + 1] (exact: w2p holds bf16 values).  A warp's 32 items are 4 pairs x 8
+  // channels: 4 rows x 32 bytes of w2p, and 32 different banks of sb.  Loads
+  // in batches of kMtWBatch, all in flight before their stores.
+  for (int base = 0; base < kMtK / 2 * g.c; base += kMtThreads * kMtWBatch) {
+    float wa[kMtWBatch], wb[kMtWBatch];
+#pragma unroll
+    for (int q = 0; q < kMtWBatch; ++q) {
+      const int i = base + threadIdx.x + q * kMtThreads, rest = i >> 5;
+      const int kp = 4 * (rest % 21) + (i & 3), c = 8 * (rest / 21) + ((i >> 2) & 7);
+      const int k = 2 * kp, ci = k / 56, dr = (k / 8) % 7, dc = k % 8;
+      const bool real = i < kMtK / 2 * g.c;
+      // dc is even: k is a real tap, k + 1 one unless dc + 1 == 7
+      const float* wr = w2p + (size_t)((dr * 7 + dc) * 3 + ci) * g.c + c;
+      wa[q] = real ? wr[0] : 0.f;
+      wb[q] = real && dc < 6 ? wr[3 * g.c] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < kMtWBatch; ++q) {
+      const int i = base + threadIdx.x + q * kMtThreads, rest = i >> 5;
+      if (i >= kMtK / 2 * g.c) break;
+      const int kp = 4 * (rest % 21) + (i & 3), c = 8 * (rest / 21) + ((i >> 2) & 7);
+      *reinterpret_cast<__nv_bfloat162*>(sb + c * kMtBStride + 2 * kp) =
+          __floats2bfloat162_rn(wa[q], wb[q]);
+    }
+  }
+  // K rows 168..175 of every channel: zero
+  for (int i = threadIdx.x; i < g.c * 4; i += kMtThreads)
+    reinterpret_cast<uint32_t*>(sb + (i / 4) * kMtBStride + kMtK)[i % 4] = 0u;
+  for (int c = threadIdx.x; c < g.c; c += kMtThreads) {
+    s_bias[c] = w2p[kTaps * g.c + c];
+    if (kMode == kCentred || kMode == kApply || kMode == kGradSums || kMode == kGradIn) {
+      s_mean[c] = stats[(size_t)n * 2 * g.c + c];
+      s_rstd[c] = stats[(size_t)n * 2 * g.c + g.c + c];
+    }
+    if (kMode == kGradIn) {
+      s_mg[c] = gst[(size_t)n * 2 * g.c + c];
+      s_mgx[c] = gst[(size_t)n * 2 * g.c + g.c + c];
+    }
+  }
+  // the halo of the tile's image window, bf16, in both copies
+  {
+    const uint16_t* xs = reinterpret_cast<const uint16_t*>(x) + (size_t)n * g.h * g.w * 3;
+    uint16_t* s0 = reinterpret_cast<uint16_t*>(sx);
+    uint16_t* s1 = s0 + 2 * kMtCopyW;
+    for (int i = threadIdx.x; i < 3 * kHaloH * kMtHaloCols; i += kMtThreads) {
+      const int ci = i / (kHaloH * kMtHaloCols), rem = i % (kHaloH * kMtHaloCols);
+      const int hr = rem / kMtHaloCols, hc = rem % kMtHaloCols;
+      const int rr = src_index(r0 - 3 + hr, g.h, g.pad);
+      const int cc = src_index(c0 - 3 + hc, g.w, g.pad);
+      const uint16_t v = (hc >= kHaloW || rr < 0 || cc < 0) ? 0 : xs[((size_t)rr * g.w + cc) * 3 + ci];
+      const int o = ci * 2 * kMtPlaneW + hr * kMtHaloCols + hc;
+      s0[o] = v;
+      if (hc > 0) s1[o - 1] = v;
+      else s1[o + kMtHaloCols - 1] = 0;   // the last column of copy 1
+    }
+  }
+  __syncthreads();
+
+  // the conv: acc[h][nt] = rows (columns 16 h + grp, + 8) x channels 8 nt + 2 tig, + 1
+  float acc[2][8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float b0 = nt < ntiles ? s_bias[8 * nt + 2 * tig] : 0.f;
+    const float b1 = nt < ntiles ? s_bias[8 * nt + 2 * tig + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      acc[h][nt][0] = acc[h][nt][2] = b0;
+      acc[h][nt][1] = acc[h][nt][3] = b1;
+    }
+  }
+  // this lane's A word: column 16 h + grp of tile row `warp`, from copy
+  // grp & 1; its ldmatrix row of B: channel (lane % 8) + 8 (lane / 16),
+  // K half 8 ((lane / 8) % 2)
+  const uint32_t* xa = sx + (grp & 1) * kMtCopyW + warp * kMtRowW + (grp >> 1) + tig;
+  const uint32_t b_base = smem_u32(sb + ((lane % 8) + 8 * (lane / 16)) * kMtBStride + 8 * ((lane / 8) % 2));
+#pragma unroll
+  for (int s = 0; s < kMtKSteps; ++s) {
+    constexpr int kNone = -1;
+    const int p0 = 2 * s, p1 = 2 * s + 1;   // (ci, dr) pairs; p1 == 21 is zero
+    const int o0 = (p0 / 7) * kMtPlaneW + (p0 % 7) * kMtRowW;
+    const int o1 = p1 < 21 ? (p1 / 7) * kMtPlaneW + (p1 % 7) * kMtRowW : kNone;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      a[h][0] = xa[o0 + 8 * h];
+      a[h][1] = xa[o0 + 8 * h + 4];
+      a[h][2] = o1 == kNone ? 0u : xa[o1 + 8 * h];
+      a[h][3] = o1 == kNone ? 0u : xa[o1 + 8 * h + 4];
+    }
+    const uint32_t bk = b_base + s * 32;   // 16 bf16 of K
+#pragma unroll
+    for (int nt = 0; nt < 8; nt += 2) {
+      if (nt >= ntiles) break;
+      uint32_t b[4];
+      if (nt + 1 < ntiles) ldsm_x4(bk + nt * 8 * kMtBStride * 2, b);
+      else ldsm_x2(bk + nt * 8 * kMtBStride * 2, b);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mma_bf16(acc[h][nt], a[h], b[0], b[1]);
+        if (nt + 1 < ntiles) mma_bf16(acc[h][nt + 1], a[h], b[2], b[3]);
+      }
+    }
+  }
+
+  // the epilogue: the formulas of stem_tile_kernel, per (pixel, channel pair)
+  const int row = r0 + warp;
+  float sa[8][2], sbm[8][2];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) sa[nt][0] = sa[nt][1] = sbm[nt][0] = sbm[nt][1] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int col = c0 + 16 * h + grp + 8 * hi;
+      if (row >= g.h || col >= g.w) continue;
+      const size_t pix = ((size_t)n * g.h + row) * g.w + col;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt >= ntiles) break;
+        const int ch = 8 * nt + 2 * tig;
+        float gv[2], v[2];
+        if (kMode == kGradSums || kMode == kGradIn || kMode == kGradRelu) {
+          const float2 gf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(gr + pix * g.c + ch));
+          gv[0] = gf.x;
+          gv[1] = gf.y;
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float y = acc[h][nt][2 * hi + j];
+          if (kMode == kOut) {
+            v[j] = g.relu ? fmaxf(y, 0.f) : y;
+          } else if (kMode == kMoments) {
+            sa[nt][j] += y;
+            sbm[nt][j] += y * y;
+          } else if (kMode == kCentred) {
+            const float d = y - s_mean[ch + j];
+            sbm[nt][j] += d * d;
+          } else if (kMode == kApply) {
+            const float t = (y - s_mean[ch + j]) * s_rstd[ch + j];
+            v[j] = g.relu ? fmaxf(t, 0.f) : t;
+          } else if (kMode == kGradRelu) {
+            v[j] = y > 0.f ? gv[j] : 0.f;
+          } else {
+            const float xh = (y - s_mean[ch + j]) * s_rstd[ch + j];
+            const float gp = (!g.relu || xh > 0.f) ? gv[j] : 0.f;
+            if (kMode == kGradSums) {
+              sa[nt][j] += gp;
+              sbm[nt][j] += gp * xh;
+            } else {
+              v[j] = s_rstd[ch + j] * (gp - s_mg[ch + j] - xh * s_mgx[ch + j]);
+            }
+          }
+        }
+        if (kMode == kOut || kMode == kApply || kMode == kGradIn || kMode == kGradRelu)
+          *reinterpret_cast<__nv_bfloat162*>(out + pix * g.c + ch) = __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
+  if (kMode == kMoments || kMode == kCentred || kMode == kGradSums) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {   // over grp: the 8 lanes of a channel pair
+          sa[nt][j] += __shfl_xor_sync(0xffffffffu, sa[nt][j], o);
+          sbm[nt][j] += __shfl_xor_sync(0xffffffffu, sbm[nt][j], o);
+        }
+    if (grp == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        if (nt < ntiles)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            s_red[0][warp][8 * nt + 2 * tig + j] = sa[nt][j];
+            s_red[1][warp][8 * nt + 2 * tig + j] = sbm[nt][j];
+          }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < g.c; c += kMtThreads) {
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        a += s_red[0][w][c];
+        b += s_red[1][w][c];
+      }
+      const size_t o = ((size_t)n * g.tiles + tile) * g.c + c;
+      if (kMode != kCentred) part_a[o] = a;
+      part_b[o] = b;
+    }
+  }
+}
+
 // ------------------------------------------------------------- launches
 
 int make_geom(int n, int h, int w, int c, int pad, int relu, Geom* g) {
@@ -884,10 +1122,16 @@ template <typename T, int kMode>
 void tile_launch(const void* x, const float* w2p, const void* gr, const float* stats,
                  const float* gst, void* out, float* pa, float* pb, const Geom& g,
                  cudaStream_t st) {
-  const size_t smem = (kRowsW * g.c + kHalo) * sizeof(float);
-  stem_tile_kernel<T, kMode><<<dim3(g.tiles, g.n), 32 * (g.c / 8), smem, st>>>(
-      static_cast<const T*>(x), w2p, static_cast<const T*>(gr), stats, gst,
-      static_cast<T*>(out), pa, pb, g);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    stem_tile_mma_kernel<kMode><<<dim3(g.tiles, g.n), kMtThreads, 0, st>>>(
+        static_cast<const T*>(x), w2p, static_cast<const T*>(gr), stats, gst,
+        static_cast<T*>(out), pa, pb, g);
+  } else {
+    const size_t smem = (kRowsW * g.c + kHalo) * sizeof(float);
+    stem_tile_kernel<T, kMode><<<dim3(g.tiles, g.n), 32 * (g.c / 8), smem, st>>>(
+        static_cast<const T*>(x), w2p, static_cast<const T*>(gr), stats, gst,
+        static_cast<T*>(out), pa, pb, g);
+  }
 }
 
 template <typename T>

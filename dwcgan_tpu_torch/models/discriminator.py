@@ -5,7 +5,8 @@ counterpart of `dwcgan_tpu/models/discriminator.py:26-81`; reference
 `num_scales` independent towers of `n_layer` 4x4 stride-2 Conv2dBlocks
 (width doubling up to 512); each ends in a 1x1 real/fake head and a
 full-receptive-field attribute head without bias.  The input is halved
-(2x2 mean) between scales.  Images come in NHWC, like the JAX module; the
+(2x2 mean) between scales in its own dtype and cast to the compute dtype
+per tower, as the JAX module does.  Images come in NHWC, like the JAX module; the
 outputs are per scale `(src [N, h, w, 1] NHWC, cls [N, num_cls])`.
 Parameter names are the reference's (`cnns_feat.{s}.{j}.conv`,
 `cnns_src.{s}`, `cnns_cls.{s}`), so `dwcgan_tpu/interop/torch_import.py`
@@ -56,11 +57,11 @@ class MsImageDis(nn.Module):
 
     def forward(self, images, multiscale: bool = True):
         """images: [N, H, W, 3] -> per scale (src [N, h, w, 1], cls [N, K])."""
-        x = channels_last(images.permute(0, 3, 1, 2).to(self.dtype))
+        x = channels_last(images.permute(0, 3, 1, 2))
         n = self.cfg.num_scales if multiscale else 1
         outs = []
         for s in range(n):
-            h = x
+            h = x.to(self.dtype)
             for blk in self.cnns_feat[s]:
                 h = blk(h)
             src, cls = self.cnns_src[s], self.cnns_cls[s]

@@ -35,7 +35,7 @@ from dwcgan_tpu_torch.config import Config, GenConfig
 from dwcgan_tpu_torch.device import resolve_device
 from dwcgan_tpu_torch.ops.blocks import (AdaINResBlocks, Conv2dBlock, MLP,
                                          ResBlocks, channels_last, dropout,
-                                         pad2d, weights_init)
+                                         pad2d, sigmoid, weights_init)
 from dwcgan_tpu_torch.ops.lstm import MaskedBiLSTM
 from dwcgan_tpu_torch.ops.norms import check_stats
 from dwcgan_tpu_torch.ops.resize import upsample2x
@@ -213,7 +213,7 @@ class Decoder(nn.Module):
         b = torch.cat([h.bias for h in heads]).to(x.dtype)
         out = F.conv2d(channels_last(pad2d(x, 3, self.pad_type)), k, b)
         return (torch.tanh(out[:, :self.out_dim]),
-                torch.sigmoid(out[:, self.out_dim:]))
+                sigmoid(out[:, self.out_dim:]))
 
 
 class Generator(nn.Module):

@@ -25,7 +25,8 @@ from torch import nn
 
 from dwcgan_tpu_torch.ops.norms import (adain, adain_residual, instance_norm,
                                         layer_norm_ref)
-from dwcgan_tpu_torch.ops.stem import stem_applicable, stem_conv7
+from dwcgan_tpu_torch.ops.stem import (stem_applicable, stem_conv7,
+                                       stem_fits_vmem)
 
 # LeakyReLU slopes differ between conv and linear blocks in the reference
 # (networks.py:559 vs :614).
@@ -35,14 +36,51 @@ LINEAR_LRELU_SLOPE = 0.2
 CONV_NORMS = ("none", "in", "ln", "adain")
 
 
+class _Sigmoid(torch.autograd.Function):
+    """`jax.nn.sigmoid` as XLA computes it: 1 / (1 + exp(-x)), each op
+    rounded to x's dtype, and its gradient by JAX's rule g * (s * (1 - s))
+    (`lax.logistic`), each op rounded too.  (`torch.sigmoid` rounds once, and
+    autograd through the expansion takes another path than JAX's rule.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _logistic(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    # without a gradient to take, the same forward without the Function's
+    # host cost (the text encoder's loop calls it per step)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Sigmoid.apply(x)
+    return _logistic(x)
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """`jax.nn.leaky_relu`: where(x >= 0, x, slope * x), the slope a scalar
+    that takes x's dtype first (0.1 is 0.10009765625 in bf16), as JAX's
+    weak-typed scalar does.  (`F.leaky_relu` multiplies by the fp32 slope.)"""
+    return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype).item())
+
+
 def activation(name: str, *, linear_block: bool = False) -> Callable:
     slope = LINEAR_LRELU_SLOPE if linear_block else CONV_LRELU_SLOPE
     table = {
         "relu": F.relu,
-        "lrelu": lambda x: F.leaky_relu(x, slope),
+        "lrelu": lambda x: leaky_relu(x, slope),
         "selu": F.selu,
         "tanh": torch.tanh,
-        "sigmoid": torch.sigmoid,
+        "sigmoid": sigmoid,
         "none": lambda x: x,
     }
     if name not in table:
@@ -109,13 +147,14 @@ class Conv2dBlock(nn.Module):
     A ReLU after in/adain is fused into the norm kernel.  With `stem` set, a
     block that `stem_applicable` accepts (a 7x7 stride-1 pad-3 conv from 3
     channels, norm in or none, activation relu or none) runs as one fused
-    `stem_conv7` call, as the JAX block does with `stem_pallas`
-    (dwcgan_tpu/ops/blocks.py:155-168), with the same parameters.  Its
-    statistics are 1pass whatever `stats` says: the JAX stem has no other
-    mode.  There is no size gate: the JAX block also asks `stem_fits_vmem`,
-    a TPU memory estimate that passes at 128 px and 64 channels; above it
-    JAX runs its jnp path, which normalises the bf16-rounded conv output,
-    where this stem normalises the fp32 one (the two agree in fp32)."""
+    `stem_conv7` call on every image for which `stem_fits_vmem` holds, as
+    the JAX block does with `stem_pallas` (dwcgan_tpu/ops/blocks.py:155-168),
+    with the same parameters.  Its statistics are 1pass whatever `stats`
+    says: the JAX stem has no other mode.  On other images (smaller than 8
+    px, or larger than 128 px at 64 channels) the block runs its normal
+    conv, norm and activation, as the JAX block runs its jnp path there:
+    that path normalises the conv output rounded to the compute dtype, the
+    stem the fp32 one."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, norm: str = "none",
@@ -144,7 +183,8 @@ class Conv2dBlock(nn.Module):
         return channels_last(y)
 
     def forward(self, x, adain_scale=None, adain_bias=None):
-        if self.stem:
+        if self.stem and stem_fits_vmem(x.shape[2], x.shape[3],
+                                        self.conv.out_channels):
             y = stem_conv7(x.permute(0, 2, 3, 1), self.conv.weight,
                            self.conv.bias, self.norm_type, self.activ,
                            self.pad_type, "1pass")

@@ -8,7 +8,7 @@ that dtype, with the fp32 parameters cast where they are used.  The
 recurrence is a loop of torch ops that rounds where the JAX scan rounds: each
 matrix product, the bias add, the gate add, and every elementwise op of the
 cell, with the sigmoid formed as 1 / (1 + exp(-x)), which is how XLA expands
-it.  (`nn.LSTM`'s fused bf16 cell rounds only its outputs, and lands as far
+it, and differentiated by JAX's rule (`ops/blocks.py::sigmoid`).  (`nn.LSTM`'s fused bf16 cell rounds only its outputs, and lands as far
 from the JAX bf16 result as an fp32 run does; in fp32 the two agree.)
 
 Both directions run as one recurrence at doubled batch: the forward stream
@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from dwcgan_tpu_torch.ops.blocks import dropout
+from dwcgan_tpu_torch.ops.blocks import dropout, sigmoid
 
 
 def reverse_padded(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -41,11 +41,6 @@ def reverse_padded(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     idx = idx.clamp(0, x.shape[1] - 1)
     out = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
     return torch.where(valid[..., None], out, 0.0)
-
-
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """1 / (1 + exp(-x)), rounded after each op as XLA's expansion is."""
-    return torch.reciprocal(1 + torch.exp(-x))
 
 
 class MaskedBiLSTM(nn.LSTM):
@@ -81,7 +76,7 @@ class MaskedBiLSTM(nn.LSTM):
         outs = []
         for t in range(steps):
             gates = proj_t[t] + torch.bmm(h, w_hh)
-            i, f, _, o = _sigmoid(gates).chunk(4, -1)
+            i, f, _, o = sigmoid(gates).chunk(4, -1)
             c_new = f * c + i * torch.tanh(gates[..., 2 * hid:3 * hid])
             h_new = o * torch.tanh(c_new)
             if t < lmin:          # every sequence is still running

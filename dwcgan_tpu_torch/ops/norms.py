@@ -103,9 +103,11 @@ def adain_plain(x, scale, bias, relu: bool = False, stats: str = "2pass"):
 
 
 def adain_residual_plain(x, y, scale, bias, stats: str = "2pass"):
-    """x + AdaIN(y), added in fp32 and rounded once (as the kernel does)."""
+    """x + AdaIN(y), with AdaIN(y) rounded to x's dtype before the add, as
+    the reference adds two tensors of the compute dtype (blocks.py:387-398,
+    norm_kernels.py:230-234): bf16 rounds twice, fp32 is unchanged."""
     check_stats(stats)
-    return (x.to(_up(x)) + _adain32(y, scale, bias, stats)).to(x.dtype)
+    return x + _adain32(y, scale, bias, stats).to(x.dtype)
 
 
 def layer_norm_ref_plain(x, gamma, beta, stats: str = "2pass"):

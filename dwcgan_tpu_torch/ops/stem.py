@@ -52,6 +52,22 @@ def stem_applicable(kernel_size: int, stride: int, padding: int,
             and activ in ("relu", "none"))
 
 
+def stem_fits_vmem(h: int, w: int, features: int) -> bool:
+    """Whether the JAX block runs its fused stem on an h x w image with
+    `features` output channels (stem_kernels.py:78-87, asked at
+    dwcgan_tpu/ops/blocks.py:155-160): the TPU kernel's per-program VMEM
+    estimate within 13 MiB, and h, w >= 8.  It holds at 128 px and 64
+    channels (12.8 MiB).  Where it does not, the JAX block runs its plain
+    conv, norm and activation, and so does the port's: this is the
+    reference's choice of function, not a fallback."""
+    hw = h * w
+    est = (147 * hw * 2              # patch tensor (compute dtype)
+           + features * hw * 4       # f32 conv accumulator
+           + 2 * features * hw * 2   # double-buffered output block
+           + 2 * 3 * (h + 6) * (w + 6) * 2)
+    return h >= 8 and w >= 8 and est <= 13 * 1024 * 1024
+
+
 def _check_args(norm: str, act: str, pad_type: str, stats: str) -> None:
     if norm not in ("in", "none") or act not in ("relu", "none") \
             or pad_type not in PAD_TYPES:

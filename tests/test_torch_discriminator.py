@@ -6,6 +6,12 @@ JAX parameters go into the port through `load_jax_dis_params`; both see
 the same numpy images.  Every output within atol 1e-5 (summation order
 only).  The port's `state_dict()` converts back through the JAX package's
 reference importer exactly.
+
+In bf16 both compute in the compute dtype, and the outputs are bit-equal
+on this CPU (the JAX fp32-vs-bf16 gap there: up to 4.4e-3 with in, 1.4e-3
+with ln).  That holds the port's LeakyReLU to JAX's (the slope rounded to
+bf16 before the product) and its scales to JAX's order: the image halved
+in its own dtype, cast per tower.
 """
 
 import jax
@@ -60,6 +66,21 @@ def test_forward_matches_jax(both, multiscale):
         assert tuple(gs.shape) == ws.shape and tuple(gc.shape) == wc.shape
         np.testing.assert_allclose(gs.numpy(), ws, atol=ATOL, rtol=0)
         np.testing.assert_allclose(gc.numpy(), wc, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("multiscale", [True, False])
+def test_bf16_forward_bit_equal_to_jax_bf16(both, multiscale):
+    jdis = JaxDis(cfg=both["jcfg"].dis, dtype=jnp.bfloat16)
+    want = jdis.apply({"params": both["params"]}, both["images"], multiscale)
+    port = MsImageDis(both["port"].cfg, torch.bfloat16)
+    port.load_state_dict(both["port"].state_dict())
+    with torch.no_grad():
+        got = port(torch.from_numpy(both["images"]), multiscale)
+    assert len(got) == len(want)
+    for pair, wpair in zip(got, want):
+        for g, w in zip(pair, wpair):
+            assert g.dtype == torch.bfloat16
+            np.testing.assert_array_equal(g.float().numpy(), np.asarray(w, np.float32))
 
 
 def test_state_dict_round_trips_through_the_reference_importer(both):

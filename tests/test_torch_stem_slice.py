@@ -15,7 +15,19 @@ package, at `configs/smoke.yaml` widths (32 px, gen dim 8), fp32, 1pass.
   stems off (same seed, same batch, same style draws, dropout off): every
   metric within rtol 1e-4.  The stem-off step is held against the JAX
   `make_train_step` by tests/test_torch_train_step.py.
+- Where the JAX block does not take its stem (`stem_fits_vmem`: under 8 px,
+  or above 128 px at 64 channels), the port's block does not either: in
+  bf16 against the JAX `Conv2dBlock(stem_pallas=True)` (the block both
+  encoders' stems are, and where the JAX package asks the predicate) at 6
+  px and 144 px, both stem kinds.  The two plain paths agree but for the
+  convolutions' summation order (6 px bit-equal; 144 px 229 of 2.65 M
+  elements apart, by up to 2^-6); a port that runs its stem there normalises
+  the fp32 conv output instead, 13 % of the elements apart at 144 px.  The
+  predicate itself against JAX's on a grid, the flagship's 128 px, 64
+  channels in it.
 """
+
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -26,12 +38,16 @@ import torch
 from dwcgan_tpu.config import load_config as jax_load_config
 from dwcgan_tpu.models.generator import Generator as JaxGenerator
 from dwcgan_tpu.ops import norms as jnorms
+from dwcgan_tpu.ops.blocks import Conv2dBlock as JaxConv2dBlock
+from dwcgan_tpu.ops.pallas import stem_kernels as jstem
 from dwcgan_tpu.text.vocab import Vocab as JaxVocab, encode_commands
 from dwcgan_tpu.train.sampler import make_infer_fn as jax_make_infer_fn
 from dwcgan_tpu_torch.cli.train import synthetic_batches
 from dwcgan_tpu_torch.config import load_config
 from dwcgan_tpu_torch.interop.jax_params import jax_to_state_dict, load_jax_params
 from dwcgan_tpu_torch.models.generator import build_generator
+from dwcgan_tpu_torch.ops import stem
+from dwcgan_tpu_torch.ops.blocks import Conv2dBlock
 from dwcgan_tpu_torch.ops.cuda import kernels
 from dwcgan_tpu_torch.train.sampler import make_infer_fn
 from dwcgan_tpu_torch.train.state import create_train_state
@@ -180,3 +196,45 @@ def test_training_step_with_stems_matches_without():
     assert sorted(on) == sorted(off)
     for k in off:
         assert abs(on[k] - off[k]) <= STEP_RTOL * abs(off[k]) + 1e-6, (k, on[k], off[k])
+
+
+def test_stem_fits_vmem_matches_jax():
+    for h, w, f in itertools.product((4, 6, 7, 8, 32, 128, 129, 144, 200),
+                                     (6, 8, 128, 144), (8, 16, 64)):
+        assert stem.stem_fits_vmem(h, w, f) == jstem.stem_fits_vmem((1, h, w, 3), f), (h, w, f)
+    assert stem.stem_fits_vmem(128, 128, 64) and not stem.stem_fits_vmem(144, 144, 64)
+
+
+FIT_SHARE = 1e-3   # of the elements that may differ (by the conv's summation order)
+FIT_ATOL = 2.0 ** -5   # measured: 2^-6 at values of about 2
+
+
+@pytest.mark.parametrize("norm", ["in", "none"])
+@pytest.mark.parametrize("px", [6, 144])
+def test_block_skips_the_stem_where_jax_does(px, norm):
+    """bf16, C 64, 1pass: the port's stem block against the JAX block with
+    `stem_pallas`, where `stem_fits_vmem` is false."""
+    jnorms.set_stats_mode("1pass")
+    try:
+        blk = JaxConv2dBlock(64, 7, 1, 3, norm=norm, activ="relu", pad_type="reflect",
+                             dtype=jnp.bfloat16, stem_pallas=True)
+        x = np.random.default_rng(1).uniform(-1, 1, (2, px, px, 3)).astype(np.float32)
+        params = blk.init(jax.random.PRNGKey(3), jnp.asarray(x, jnp.bfloat16))["params"]
+        want = np.asarray(blk.apply({"params": params}, jnp.asarray(x, jnp.bfloat16)),
+                          np.float32)
+    finally:
+        jnorms.set_stats_mode("2pass")
+    port = Conv2dBlock(3, 64, 7, 1, 3, norm, "relu", "reflect", stem=True)
+    port.stats = "1pass"
+    kernel, bias = (np.array(params["Conv_0"][k]) for k in ("kernel", "bias"))
+    with torch.no_grad():
+        port.conv.weight.copy_(torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy()))
+        port.conv.bias.copy_(torch.from_numpy(bias))
+        got = port(torch.from_numpy(x).permute(0, 3, 1, 2).bfloat16().contiguous(
+            memory_format=torch.channels_last))
+    assert port.stem and not stem.stem_fits_vmem(px, px, 64)
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    err = np.abs(got - want)
+    # a conv output 1 ulp apart moves its normalised value by that times rstd
+    assert float(err.max()) <= FIT_ATOL, float(err.max())
+    assert np.count_nonzero(err) <= FIT_SHARE * err.size, np.count_nonzero(err)

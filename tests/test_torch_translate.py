@@ -1,6 +1,10 @@
 """The port's translate CLI end to end on the CPU: three tiny PNGs, a `.npz`
 of JAX generator parameters, and the written edits against the JAX
-package's `make_infer_fn` on the same inputs."""
+package's `make_infer_fn` on the same inputs.  The images are preprocessed
+as the JAX CLI does by default (`_center_crop_resize(backend="auto")`: the
+native half-pixel bilinear); the port's copy of it is held against
+`dwcgan_tpu.native.preprocess_batch`, and its PIL path against the JAX
+PIL path."""
 
 import os
 
@@ -11,6 +15,7 @@ import pytest
 import torch
 from PIL import Image
 
+from dwcgan_tpu import native
 from dwcgan_tpu.config import load_config as jax_load_config
 from dwcgan_tpu.data.celeba import _center_crop_resize as jax_crop_resize
 from dwcgan_tpu.eval.harness import read_src2trg as jax_read_src2trg
@@ -19,6 +24,7 @@ from dwcgan_tpu.ops import norms as jnorms
 from dwcgan_tpu.text.vocab import Vocab, encode_commands
 from dwcgan_tpu.train.sampler import make_infer_fn as jax_make_infer_fn
 from dwcgan_tpu_torch.cli import translate
+from dwcgan_tpu_torch.data.preprocess import preprocess_batch
 from dwcgan_tpu_torch.interop.jax_params import flatten_params
 
 torch.set_num_threads(1)
@@ -60,10 +66,39 @@ def test_center_crop_resize_matches_jax_pil_path(setup):
     tmp, cfg = setup[0], setup[1]
     for name in ("a.png", "b.png"):
         with Image.open(tmp / name) as im:
-            ours = translate._center_crop_resize(im, cfg.crop_size, cfg.image_size)
+            ours = translate._center_crop_resize(im, cfg.crop_size, cfg.image_size,
+                                                 backend="pil")
             theirs = jax_crop_resize(im, cfg.crop_size, cfg.image_size, backend="pil")
         assert ours.shape == (cfg.image_size, cfg.image_size, 3)
         np.testing.assert_array_equal(ours, theirs)
+
+
+def test_center_crop_resize_matches_the_jax_cli_default(setup):
+    """By default the port preprocesses as the JAX CLI does: the native
+    kernel's half-pixel bilinear (its C++ build here, within the 1e-4 that
+    tests/test_native.py allows between it and its NumPy mirror)."""
+    tmp, cfg = setup[0], setup[1]
+    for name in ("a.png", "b.png"):
+        with Image.open(tmp / name) as im:
+            ours = translate._center_crop_resize(im, cfg.crop_size, cfg.image_size)
+            theirs = jax_crop_resize(im, cfg.crop_size, cfg.image_size, backend="auto")
+        assert ours.shape == (cfg.image_size, cfg.image_size, 3)
+        np.testing.assert_allclose(ours, theirs, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("out_size", [32, 56])   # down- and upscaling
+def test_preprocess_batch_matches_jax_native(out_size):
+    """The port's copy against the JAX package's NumPy branch exactly, and
+    against its native kernel within 1e-4, with flips (an even w - crop)."""
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, (3, 50, 46, 3), dtype=np.uint8)
+    flips = np.array([0, 1, 0])
+    ours = preprocess_batch(images, 40, out_size, flips)
+    assert ours.shape == (3, out_size, out_size, 3) and ours.dtype == np.float32
+    np.testing.assert_array_equal(
+        ours, native.preprocess_batch(images, 40, out_size, flips, force_fallback=True))
+    np.testing.assert_allclose(ours, native.preprocess_batch(images, 40, out_size, flips),
+                               atol=1e-4, rtol=0)
 
 
 def test_translate_main_matches_jax_infer(setup):
@@ -80,7 +115,7 @@ def test_translate_main_matches_jax_infer(setup):
     for name, _ in EDITS:
         with Image.open(tmp / name) as im:
             imgs.append(jax_crop_resize(im, cfg.crop_size, cfg.image_size,
-                                        backend="pil"))
+                                        backend="auto"))
     ids, lens = encode_commands([c for _, c in EDITS], vocab, cfg.max_text_len)
     try:
         ref = np.asarray(jax_make_infer_fn(cfg, gen)(params, np.stack(imgs),
