@@ -23,22 +23,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    counters: AdaIN's serves the residual form too) at every shape the
    flagship training step gives it, in fp32 and bf16 and both stats modes,
    against its plain PyTorch backward on the card (dx and the parameter
-   gradients), after the forward kernel at the same shape against its plain
-   forward with phase 2's tolerance; times and bound as in phase 2, the
-   bound counting x and the incoming gradient read once and dx written
-   once; the library time for the instance norm and AdaIN is the backward
-   of `F.instance_norm` (no ReLU; AdaIN as one call on x viewed as
-   [1, N*C, H, W]) through `torch.autograd.grad(..., retain_graph=True)`,
-   timed eagerly;
+   gradients), run twice (bit-equal), after the forward kernel at the same
+   shape against its plain forward with phase 2's tolerance (and timed
+   there, as phase 2 times it: rows 1-4 per training step); times and bound
+   as in phase 2, the bound counting x and the incoming gradient read once
+   and dx written once; the library time for the instance norm and AdaIN is
+   the backward of `F.instance_norm` (no ReLU; AdaIN as one call on x
+   viewed as [1, N*C, H, W]) through `torch.autograd.grad(...,
+   retain_graph=True)`, timed eagerly; the CUDA kernels one call launches
+   (the kernel nodes of a CUDA graph of one call: the instance-norm and
+   AdaIN backward must be one, the cluster kernel), with that kernel's plan (blocks per sample, shared
+   memory, resident share of a slab, clusters that fit) and, at a ReLU
+   site, the elements where the mask it recomputes from x differs from the
+   forward's y > 0 (must be 0);
 6. one fp32 training step at flagship width (batch 2, VGG on, TF32 off,
    dropout off, the same weights and injected style draws) on the card
    against the CPU: every loss metric and both gradient norms within
    rtol 1e-3; prints the CPU step's seconds;
 7. the flagship training step (bf16, batch 16, 1pass, VGG on) through
    `cli/train.py`'s `build_trainer`: exact launches per step (forward IN 24,
-   AdaIN 8, AdaIN-residual 8, LayerNorm 4; backward 23 / 8 / 8 / 4), finite
-   losses, parameters and EMA moved; 3 warm-up steps, then 12 steps timed
-   by CUDA events: median, min and max ms per step, images/s, peak memory.
+   AdaIN 8, AdaIN-residual 8, LayerNorm 4; backward 23 / 8 / 8 / 4), and
+   per backward site how often the incoming gradient had to be copied into
+   the kernels' layout; finite losses, parameters and EMA moved; 3 warm-up
+   steps, then 12 steps timed by CUDA events: median, min and max ms per
+   step, images/s, peak memory.
 
 8. stem kernels: the fused 7x7 stem forward and backward at every stem
    site of the stem-on paths (content: IN + ReLU, style: ReLU; [32, 3, 128,
@@ -68,7 +76,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 The last lines are the `kernels` JSON (nine kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
 forward and backward; a forward kernel's times and `launches` are per
-served batch, with `launches_train` its launches per training step; the
+served batch, with `launches_train` its launches per training step and
+`ms_train` / `bound_ms_train` its time and bound per step; the
 stem entries carry phase 8's HMMA counts of the kernels they run as
 `hmma`), the nvidia-smi line and `{"ok": true, "device": {...}}`.  Without
 a card it exits 1 and prints no result.
@@ -76,6 +85,7 @@ a card it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -378,21 +388,26 @@ def phase_kernels():
 
 TRAIN_BATCH = 16
 # The norm backward call sites of one flagship training step (bf16, batch
-# 16): (counter, the forward op at the site, NCHW shape, fused relu, calls)
+# 16): (counter, the forward op at the site, NCHW shape, fused relu, backward
+# calls, forward calls); the VGG's instance norm runs forward twice (the
+# real image's features need no gradient)
 BWD_SITES = tuple(
-    ("instance_norm_bwd", "instance_norm", shape, relu, calls)
+    ("instance_norm_bwd", "instance_norm", shape, relu, calls, calls)
     for b in (TRAIN_BATCH, 3 * TRAIN_BATCH)      # encode, re-encode at 3n
     for shape, relu, calls in (((b, 64, 128, 128), True, 1),
                                ((b, 128, 64, 64), True, 1),
                                ((b, 256, 32, 32), True, 5),
                                ((b, 256, 32, 32), False, 4))) + (
-    ("instance_norm_bwd", "instance_norm", (TRAIN_BATCH, 512, 16, 16), False, 1),  # VGG
+    ("instance_norm_bwd", "instance_norm", (TRAIN_BATCH, 512, 16, 16), False, 1, 2),  # VGG
 ) + tuple(
     site for b in (4 * TRAIN_BATCH, TRAIN_BATCH)  # decode at 4n, cycle at n
-    for site in (("adain_bwd", "adain", (b, 256, 32, 32), True, 4),
-                 ("adain_residual_bwd", "adain_residual", (b, 256, 32, 32), False, 4),
-                 ("layer_norm_ref_bwd", "layer_norm_ref", (b, 128, 64, 64), False, 1),
-                 ("layer_norm_ref_bwd", "layer_norm_ref", (b, 64, 128, 128), False, 1)))
+    for site in (("adain_bwd", "adain", (b, 256, 32, 32), True, 4, 4),
+                 ("adain_residual_bwd", "adain_residual", (b, 256, 32, 32), False, 4, 4),
+                 ("layer_norm_ref_bwd", "layer_norm_ref", (b, 128, 64, 64), False, 1, 1),
+                 ("layer_norm_ref_bwd", "layer_norm_ref", (b, 64, 128, 128), False, 1, 1)))
+# the backwards that are one cluster kernel per call (rows 5 and 6), by op
+# code of `kernels.bwd_clusters`
+CLUSTER_BWD = {"instance_norm_bwd": 0, "adain_bwd": 1, "adain_residual_bwd": 1}
 EXPECTED_TRAIN_LAUNCHES = {
     "instance_norm": 24, "adain": 8, "adain_residual": 8, "layer_norm_ref": 4,
     "instance_norm_bwd": 23, "adain_bwd": 8, "adain_residual_bwd": 8,
@@ -417,15 +432,50 @@ STEP_RTOL = 1e-3      # fp32 training step, card vs CPU
 TIMED_STEPS = 12
 
 
-def run_bwd(counter, x, gr, st, out, params, relu, residual_y=None):
-    """The backward kernel of a site: the gradients of its inputs."""
+def run_bwd(counter, x, gr, st, params, relu):
+    """The backward kernel of a site (x: the normalised activation; params:
+    its affine): the gradients of its inputs."""
     if counter == "instance_norm_bwd":
-        return (kernels.instance_norm_bwd(x, gr, st, out if relu else None),)
+        return (kernels.instance_norm_bwd(x, gr, st, relu=relu),)
     if counter == "adain_bwd":
-        return kernels.adain_bwd(x, gr, st, params[0], out if relu else None)
+        return kernels.adain_bwd(x, gr, st, params[0], params[1], relu=relu)
     if counter == "adain_residual_bwd":
-        return kernels.adain_bwd(residual_y, gr, st, params[0], residual=True)
+        return kernels.adain_bwd(x, gr, st, params[0], residual=True)
     return kernels.layer_norm_ref_bwd(x, gr, st, params[0])
+
+
+def kernels_per_call(fn) -> int:
+    """How many CUDA kernels one call of `fn` launches: the kernel nodes of
+    a CUDA graph that captured one call (cuGraphGetNodes and
+    cuGraphNodeGetType of libcuda)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+
+    def check(err):
+        if err:
+            raise RuntimeError(f"CUDA error {err} while reading a graph")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)))
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)))
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)))
+        kernels += kind.value == 0   # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels
 
 
 def run_bwd_plain(counter, x, gr, out, params, relu, stats, residual_y=None):
@@ -456,25 +506,56 @@ def check_bwd_site(counter, fwd, shape, relu, dtype, stats, g):
     params = args[2:] if fwd == "adain_residual" else args[1:]
     out, st = run_kernel_stats(fwd, args, relu, stats)
     torch.cuda.synchronize()
-    # the forward at the training shape first: `out` is the backward's mask
+    # the forward at the training shape first: `out` is the plain
+    # backward's mask; its time there is the forward's per-step cost
     fwd_err = check_forward(fwd, shape, relu, dtype, stats, args, out)
+    fwd_copies = [args] + [tuple(a.clone(memory_format=torch.preserve_format)
+                                 if a.dim() == 4 else a for a in args)
+                           for _ in range(max(0, math.ceil(COLD_L2_BYTES / sum(
+                               a.numel() * a.element_size() for a in args)) - 1))]
+    fwd_ms = device_ms(lambda i: run_kernel(fwd, fwd_copies[i % len(fwd_copies)],
+                                            relu, stats))
+    fwd_bound_ms = site_bound(fwd, shape, dtype, stats)[0]
+    del fwd_copies
     gr = torch.randn(out.shape, generator=g, device="cuda").to(dtype).contiguous(
         memory_format=torch.channels_last)
-    got = run_bwd(counter, x, gr, st, out, params, relu, x)
+    got = run_bwd(counter, x, gr, st, params, relu)
+    again = run_bwd(counter, x, gr, st, params, relu)
     torch.cuda.synchronize()
+    label = f"{counter} {shape} {dtype} {stats} relu={relu}"
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: two runs differ")
     want = run_bwd_plain(counter, x.float(), gr.float(), out.float(), params,
                          relu, stats, x.float())
     rel = BWD_FP32_REL if dtype == torch.float32 else BWD_BF16_REL
     max_err, max_rel = 0.0, 0.0
     for a, b in zip(got, want):
         if not torch.isfinite(a).all():
-            raise AssertionError(f"{counter} {shape} {dtype} {stats}: not finite")
+            raise AssertionError(f"{label}: not finite")
         scale = float(b.abs().max())
         err = float((a.float() - b.float()).abs().max())
         max_err, max_rel = max(max_err, err), max(max_rel, err / max(scale, 1e-30))
         if err > rel * scale + 1e-6:
-            raise AssertionError(f"{counter} {shape} {dtype} {stats} relu={relu}: "
-                                 f"max abs err {err:.3e} vs largest {scale:.3e}")
+            raise AssertionError(f"{label}: max abs err {err:.3e} vs largest {scale:.3e}")
+    del got, again, want
+    # the one-launch backward: its plan, how many clusters fit, the kernels
+    # one call launches (1), and its ReLU mask against the forward's y > 0
+    extra = {"kernels_per_call": kernels_per_call(
+        lambda: run_bwd(counter, x, gr, st, params, relu))}
+    if counter in CLUSTER_BWD:
+        n, c, h, w = shape
+        plan = kernels.bwd_plan(n, h * w, c, dtype)
+        extra.update(k=plan.k, smem=plan.smem, resident_share=plan.resident / plan.rows,
+                     clusters=kernels.bwd_clusters(0, CLUSTER_BWD[counter], dtype,
+                                                   relu, False, c, plan))
+        if extra["kernels_per_call"] != 1:
+            raise AssertionError(f"{label}: {extra['kernels_per_call']} kernels per call")
+        if relu:
+            extra["mask_mismatches"] = kernels.relu_mask_mismatches(
+                x, out, st, *(params if counter == "adain_bwd" else ()))
+            if extra["mask_mismatches"]:
+                raise AssertionError(f"{label}: the kernel's ReLU mask differs from "
+                                     f"y > 0 at {extra['mask_mismatches']} elements")
 
     # timing on copies of the inputs (cold L2), as phase 2
     in_bytes = 2 * x.numel() * x.element_size()
@@ -485,8 +566,7 @@ def check_bwd_site(counter, fwd, shape, relu, dtype, stats, g):
          out.clone(memory_format=torch.preserve_format))
         for _ in range(n_copies - 1)]
     kern = lambda i: run_bwd(counter, copies[i % n_copies][0], copies[i % n_copies][1],
-                             copies[i % n_copies][2], copies[i % n_copies][3],
-                             params, relu, copies[i % n_copies][0])
+                             copies[i % n_copies][2], params, relu)
     ms = device_ms(kern)
     eager_ms = time_ms(kern)
     plain_ms = device_ms(lambda i: run_bwd_plain(
@@ -513,20 +593,22 @@ def check_bwd_site(counter, fwd, shape, relu, dtype, stats, g):
     bound_ms, bound_by = bwd_bound(shape, dtype, stats)
     return dict(kernel=counter, shape=list(shape), relu=relu,
                 dtype=str(dtype).replace("torch.", ""), stats=stats,
-                max_abs_err=max_err, max_rel_err=max_rel,
+                max_abs_err=max_err, max_rel_err=max_rel, bit_equal_runs=True,
                 fwd_max_abs_err=fwd_err, ms=ms, eager_ms=eager_ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, fwd=fwd, fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound_ms,
+                **extra)
 
 
 def phase_backward():
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rows = []
-    for counter, fwd, shape, relu, calls in BWD_SITES:
+    for counter, fwd, shape, relu, calls, fwd_calls in BWD_SITES:
         for dtype in (torch.float32, torch.bfloat16):
             for stats in ("2pass", "1pass"):
                 row = check_bwd_site(counter, fwd, shape, relu, dtype, stats, g)
                 row["calls_per_step"] = calls
+                row["fwd_calls_per_step"] = fwd_calls
                 rows.append(row)
                 log("bwd_check " + json.dumps(row))
         torch.cuda.empty_cache()
@@ -802,13 +884,16 @@ def phase_train_bf16(card, stem=False):
     torch.cuda.synchronize()
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
+    norms.GRAD_COPIES.clear()
     m = step(state, batches[3 % len(batches)])
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     metrics = {k: float(v) for k, v in m.items()}
     log(f"train_bf16: stem_pallas {stem}, {cfg.compute_dtype}, norm_stats "
         f"{cfg.norm_stats}, batch {cfg.batch_size}, vgg_w {cfg.vgg_w}, launches "
-        f"per step {launches}")
+        f"per step {launches}; incoming gradients copied into the kernels' "
+        "layout and dtype, per site [backward calls, copies]: "
+        + json.dumps(norms.GRAD_COPIES))
     if launches != expected:
         raise AssertionError(f"launches {launches} != {expected}")
     if not all(math.isfinite(v) for v in metrics.values()):
@@ -1061,18 +1146,32 @@ def main() -> int:
             else "operations", library_ms=lib, per=per, **extra)
 
     for name in EXPECTED_LAUNCHES:
+        # its time per training step: phase 5's forward at each training
+        # site times the site's forward calls
+        train = [r for r in bwd_rows if r["fwd"] == name and r["dtype"] == "bfloat16"
+                 and r["stats"] == cfg.norm_stats]
+        if sum(r["fwd_calls_per_step"] for r in train) != train_launches[name]:
+            raise AssertionError(f"{name}: the training sites do not add up to "
+                                 f"its {train_launches[name]} launches per step")
         summary.append(entry(
             name, REPLACES[name], [r for r in rows if r["kernel"] == name],
             "calls_per_batch", "served batch of 32, bf16, " + cfg.norm_stats,
-            serve_launches[name], {"launches_train": train_launches[name]}))
+            serve_launches[name], {
+                "launches_train": train_launches[name],
+                "ms_train": sum(r["fwd_ms"] * r["fwd_calls_per_step"] for r in train),
+                "bound_ms_train": sum(r["fwd_bound_ms"] * r["fwd_calls_per_step"]
+                                      for r in train)}))
     for name, counters in (("instance_norm_bwd", ("instance_norm_bwd",)),
                            ("adain_bwd", ("adain_bwd", "adain_residual_bwd")),
                            ("layer_norm_ref_bwd", ("layer_norm_ref_bwd",))):
+        mine = [r for r in bwd_rows if r["kernel"] in counters]
         summary.append(entry(
-            name, BWD_REPLACES[name], [r for r in bwd_rows if r["kernel"] in counters],
+            name, BWD_REPLACES[name], mine,
             "calls_per_step", "training step of 16, bf16, " + cfg.norm_stats,
             sum(train_launches[c] for c in counters),
-            {"launches_by_counter": {c: train_launches[c] for c in counters}}))
+            {"launches_by_counter": {c: train_launches[c] for c in counters},
+             "kernels_per_call": max(r["kernels_per_call"] for r in mine),
+             "mask_mismatches": sum(r.get("mask_mismatches", 0) for r in mine)}))
     stem_entry = lambda name, per_key, per, launches, extra: entry(
         name, STEM_REPLACES[name], [r for r in stem_rows if r["kernel"] == name],
         per_key, per, launches, extra)

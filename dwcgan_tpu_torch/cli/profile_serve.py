@@ -49,12 +49,13 @@ from dwcgan_tpu_torch.train.sampler import make_infer_fn
 # kernel-name substrings -> group (first match wins; lower case)
 GROUPS = (
     ("stem kernels (this port)", ("stem_",)),
-    ("norm backward kernels (this port)", ("bwd_sums_kernel",
-                                           "bwd_finalize_kernel",
-                                           "bwd_apply_kernel",
+    ("norm backward kernels (this port)", ("norm_bwd_cluster_kernel",
+                                           "ln_bwd_",
                                            "ln_param_grads_kernel")),
-    ("norm kernels (this port)", ("moments_kernel", "finalize_kernel",
-                                  "apply_kernel")),
+    # "::apply_kernel", not "apply_kernel": PyTorch's optimizers run
+    # `multi_tensor_apply_kernel`
+    ("norm kernels (this port)", ("::moments_kernel", "::finalize_kernel",
+                                  "::apply_kernel")),
     ("lstm", ("lstm", "rnn", "persist")),
     ("convolution", ("conv", "xmma", "implicit", "nchw", "nhwc", "winograd",
                      "fft")),

@@ -16,12 +16,12 @@ reads a port `state_dict()` directly.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from dwcgan_tpu_torch.config import Config, DisConfig
 from dwcgan_tpu_torch.device import resolve_device
-from dwcgan_tpu_torch.ops.blocks import Conv2dBlock, channels_last, weights_init
+from dwcgan_tpu_torch.ops.blocks import (Conv2dBlock, channels_last, conv2d,
+                                         weights_init)
 from dwcgan_tpu_torch.ops.resize import downsample2x
 
 
@@ -65,8 +65,8 @@ class MsImageDis(nn.Module):
             for blk in self.cnns_feat[s]:
                 h = blk(h)
             src, cls = self.cnns_src[s], self.cnns_cls[s]
-            o_src = F.conv2d(h, src.weight.to(h.dtype), src.bias.to(h.dtype))
-            o_cls = F.conv2d(h, cls.weight.to(h.dtype))
+            o_src = conv2d(h, src.weight, src.bias)
+            o_cls = conv2d(h, cls.weight)
             outs.append((o_src.permute(0, 2, 3, 1),
                          o_cls.reshape(o_cls.shape[0], -1)))
             if s + 1 < n:

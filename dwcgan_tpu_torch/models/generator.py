@@ -34,8 +34,8 @@ from torch import nn
 from dwcgan_tpu_torch.config import Config, GenConfig
 from dwcgan_tpu_torch.device import resolve_device
 from dwcgan_tpu_torch.ops.blocks import (AdaINResBlocks, Conv2dBlock, MLP,
-                                         ResBlocks, channels_last, dropout,
-                                         pad2d, sigmoid, weights_init)
+                                         ResBlocks, channels_last, conv2d,
+                                         dropout, pad2d, sigmoid, weights_init)
 from dwcgan_tpu_torch.ops.lstm import MaskedBiLSTM
 from dwcgan_tpu_torch.ops.norms import check_stats
 from dwcgan_tpu_torch.ops.resize import upsample2x
@@ -209,9 +209,9 @@ class Decoder(nn.Module):
         if not self.use_attention:
             return self.image_content(x), None
         heads = (self.image_content.conv, self.image_attention.conv)
-        k = torch.cat([h.weight for h in heads]).to(x.dtype)
-        b = torch.cat([h.bias for h in heads]).to(x.dtype)
-        out = F.conv2d(channels_last(pad2d(x, 3, self.pad_type)), k, b)
+        out = conv2d(channels_last(pad2d(x, 3, self.pad_type)),
+                     torch.cat([h.weight for h in heads]),
+                     torch.cat([h.bias for h in heads]))
         return (torch.tanh(out[:, :self.out_dim]),
                 sigmoid(out[:, self.out_dim:]))
 

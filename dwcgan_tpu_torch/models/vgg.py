@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dwcgan_tpu_torch.ops.blocks import channels_last
+from dwcgan_tpu_torch.ops.blocks import channels_last, conv2d
 from dwcgan_tpu_torch.ops.norms import instance_norm
 
 # (name, out_channels, followed_by_pool)
@@ -54,12 +54,15 @@ class Vgg16Features(nn.Module):
     def forward(self, x):
         x = channels_last(x.to(self.dtype))
         for name, _, pool in LAYERS:
-            conv = getattr(self, name)
-            x = F.relu(F.conv2d(x, conv.weight.to(x.dtype),
-                                conv.bias.to(x.dtype), padding=1))
+            x = self.layer(name, x)
             if pool:
                 x = F.max_pool2d(x, 2)
         return channels_last(x)
+
+    def layer(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """One 3x3 conv layer and its ReLU, in x's dtype."""
+        conv = getattr(self, name)
+        return F.relu(conv2d(x, conv.weight, conv.bias, padding=1))
 
 
 def vgg_preprocess(images: torch.Tensor) -> torch.Tensor:

@@ -132,6 +132,20 @@ def channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
 
 
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
+    """`F.conv2d` in x's dtype, the bias added as flax's `conv(x) + b`:
+    below fp32 the convolution rounds to x's dtype and its sum with the
+    bias, cast to that dtype, rounds again (flax `nn.Conv(dtype=...)`,
+    dwcgan_tpu/ops/blocks.py:216, and the decoder's heads,
+    dwcgan_tpu/models/generator.py:295-300).  fp32 keeps the bias in the
+    convolution, where the two forms differ only by fp32 rounding."""
+    w = weight.to(x.dtype)
+    if bias is None or x.dtype in (torch.float32, torch.float64):
+        return F.conv2d(x, w, None if bias is None else bias.to(x.dtype), **kw)
+    return F.conv2d(x, w, **kw) + bias.to(x.dtype)[:, None, None]
+
+
 class LayerNormRef(nn.Module):
     """Per-channel affine of the reference LayerNorm (`gamma`, `beta`)."""
 
@@ -178,8 +192,7 @@ class Conv2dBlock(nn.Module):
     def conv_raw(self, x: torch.Tensor) -> torch.Tensor:
         """pad + conv in the activation dtype, channels_last out."""
         x = channels_last(pad2d(x, self.padding, self.pad_type))
-        y = F.conv2d(x, self.conv.weight.to(x.dtype),
-                     self.conv.bias.to(x.dtype), stride=self.stride)
+        y = conv2d(x, self.conv.weight, self.conv.bias, stride=self.stride)
         return channels_last(y)
 
     def forward(self, x, adain_scale=None, adain_bias=None):

@@ -16,6 +16,12 @@ per channel; the LayerNorm's 1/(std+eps) per sample, at channel 0).  The
 backward takes it back, so it never recomputes the moments.  Autograd is
 `ops/norms.py`'s business: these wrappers take and return plain tensors.
 
+The instance-norm and AdaIN backwards are one cluster kernel per call, laid
+out by `bwd_plan`: k blocks per sample, each keeping as many rows of its
+slab of x and g in shared memory as fit.  A fused ReLU's mask is recomputed
+in the kernel from x and the statistics; `relu_mask_mismatches` counts where
+that mask differs from a forward output's y > 0 (a check; 0 is right).
+
 The sources are `dwcgan_tpu_torch/csrc/norm_kernels.cu` and
 `stem_kernels.cu`; the library is built with nvcc at first use
 (`build.py`).
@@ -25,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,13 +56,14 @@ _SIGNATURES = {
     "dwc_adain": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, gamma, beta, y, stats, ws, n, hw, c, splits, dtype, two_pass, stream
     "dwc_layer_norm_ref": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, y (mask source or NULL), g, stats, dx, ws, n, hw, c, splits, dtype,
-    # stream
-    "dwc_instance_norm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, y, g, stats, scale, dx, dscale, dbias, ws, n, hw, c, splits, dtype,
-    # stream
-    "dwc_adain_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _P],
+    # x, g, stats, dx, y (the check's, or NULL), mismatch (or NULL), n, hw,
+    # c, dtype, relu, k, resident, smem, stream
+    "dwc_instance_norm_bwd": [_P] * 6 + [_I] * 8 + [_P],
+    # x, g, stats, scale, bias, dx, dscale, dbias, y, mismatch, n, hw, c,
+    # dtype, relu, k, resident, smem, stream
+    "dwc_adain_bwd": [_P] * 10 + [_I] * 8 + [_P],
+    # op (0 IN, 1 AdaIN), dtype, relu, check, c, k, resident, smem, *clusters
+    "dwc_norm_bwd_clusters": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
     # x, g, stats, gamma, dx, dgamma, dbeta, ws, n, hw, c, splits, dtype,
     # stream
     "dwc_layer_norm_ref_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -134,14 +142,16 @@ def _f32(*shape, like: torch.Tensor) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
-def _run(name: str, fn, device, *args) -> None:
-    """Launch `fn(*args, stream)` on `device`'s current stream; count it."""
+def _run(name: str, fn, device, *args, count: bool = True) -> None:
+    """Launch `fn(*args, stream)` on `device`'s current stream; count it
+    (unless `count` is off: a check, not the op)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
 def _ptr(t):
@@ -209,46 +219,145 @@ def _check_stats(name: str, x: torch.Tensor, stats: torch.Tensor) -> None:
     _check_param(name, x, stats, (x.shape[0], 2, x.shape[1]))
 
 
-def _bwd_common(name: str, x, g, stats, y=None):
+_SMEM_HALF = 233472 // 2 - 1024   # two blocks per SM: half its 228 KB, less
+                                  # the 1 KB each block reserves
+_CLUSTER = 8         # blocks per sample: the portable cluster size
+_CHUNKS = 4          # bulk copies per block (csrc kChunks)
+
+
+class BwdPlan(NamedTuple):
+    """How the cluster backward lays out one call (csrc `bwd_smem`)."""
+    k: int          # blocks per sample, one cluster
+    rows: int       # rows of the longest slab, ceil(hw / k)
+    resident: int   # rows a block keeps in shared memory (the rest streams)
+    smem: int       # dynamic shared memory of a block, bytes
+
+
+def bwd_slabs(hw: int, k: int):
+    """Rows [start, end) of each block of a sample's cluster, by rank, as
+    the kernel cuts them (rank * hw // k)."""
+    return [(r * hw // k, (r + 1) * hw // k) for r in range(k)]
+
+
+def bwd_plan(n: int, hw: int, c: int, dtype: torch.dtype) -> BwdPlan:
+    """The cluster backward's layout for an [n, c, h, w] activation with
+    hw = h * w: k = min(8, hw) blocks per sample, each keeping the first
+    `resident` rows of its slab of x and g in shared memory beside the
+    block's sums (2 * 256 * V lane partials, 4 * c totals, the mbarriers),
+    as many as fit in half an SM, so that two blocks share each SM: one's
+    loads overlap the other's sums and stores, and twice the clusters run
+    at once (30 of 8 blocks on the H100 against 15 at a block's full 227
+    KB).  On the H100 that beat keeping twice the rows resident at every
+    training-step site, the slabs that then stream most of their rows
+    twice too.  Raises on a shape it cannot take."""
+    if dtype not in _VEC:
+        raise TypeError(f"bwd_plan: dtype {dtype} not supported")
+    vec, size = _VEC[dtype], torch.finfo(dtype).bits // 8
+    if n < 1 or n > 65535 or hw < 1 or c < vec or c % vec or c // vec > _THREADS:
+        raise ValueError(f"bwd_plan: no plan for n {n}, hw {hw}, c {c}, {dtype}")
+    k = min(_CLUSTER, hw)
+    rows = -(-hw // k)
+    fixed = 2 * _THREADS * vec * 4 + 4 * c * 4 + _CHUNKS * 8
+    per_row = 2 * c * size
+    resident = min(rows, (_SMEM_HALF - fixed) // per_row)
+    if resident < 1:
+        raise ValueError(f"bwd_plan: not one row of c {c} fits in shared memory")
+    return BwdPlan(k, rows, resident, fixed + resident * per_row)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_clusters(device: int, op: int, dtype: torch.dtype, relu: bool,
+                 check: bool, c: int, plan: BwdPlan) -> int:
+    """Set the cluster backward up for this configuration on card `device`
+    (once) and return how many of its clusters fit on the card at once;
+    raise if none does."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _lib().dwc_norm_bwd_clusters(op, _DTYPE_CODE[dtype], int(relu),
+                                           int(check), c, plan.k, plan.resident,
+                                           plan.smem, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"norm backward setup failed with CUDA error {err}")
+    if n.value == 0:
+        raise RuntimeError(f"no cluster of {plan.k} blocks with {plan.smem} bytes "
+                           "of shared memory each fits on the card")
+    return n.value
+
+
+def _bwd_common(name: str, x, g, stats, op: int, relu: bool, check: bool = False):
+    """Checks, the plan and its setup; returns (n, hw, c, plan)."""
     _check_activation(name, x)
     _check_like(name, x, g)
-    if y is not None:
-        _check_like(name, x, y)
     _check_stats(name, x, stats)
-    n, hw, c, splits = _geometry(x)
-    dx = torch.empty_like(x, memory_format=torch.channels_last)
-    ws = _f32(2 * n * splits * c + 2 * n * c + 2 * n, like=x)
-    return n, hw, c, splits, dx, ws
+    n, c, h, w = x.shape
+    plan = bwd_plan(n, h * w, c, x.dtype)
+    bwd_clusters(x.device.index or 0, op, x.dtype, relu, check, c, plan)
+    return n, h * w, c, plan
 
 
 def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
-                      y: torch.Tensor = None) -> torch.Tensor:
+                      relu: bool = False) -> torch.Tensor:
     """dx of `instance_norm` at x, given the incoming gradient g and the
-    forward's stats; `y`, the forward output, when it fused a ReLU (the
-    mask is y > 0)."""
+    forward's stats; `relu`: the forward fused a ReLU (its mask is
+    recomputed from x and the stats)."""
     name = "instance_norm_bwd"
-    n, hw, c, splits, dx, ws = _bwd_common(name, x, g, stats, y)
-    _run(name, _lib().dwc_instance_norm_bwd, x.device, x.data_ptr(), _ptr(y),
-         g.data_ptr(), stats.data_ptr(), dx.data_ptr(), ws.data_ptr(), n, hw,
-         c, splits, _DTYPE_CODE[x.dtype])
+    n, hw, c, plan = _bwd_common(name, x, g, stats, 0, relu)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    _run(name, _lib().dwc_instance_norm_bwd, x.device, x.data_ptr(), g.data_ptr(),
+         stats.data_ptr(), dx.data_ptr(), None, None, n, hw, c,
+         _DTYPE_CODE[x.dtype], int(relu), plan.k, plan.resident, plan.smem)
     return dx
 
 
 def adain_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
-              scale: torch.Tensor, y: torch.Tensor = None,
+              scale: torch.Tensor, bias: torch.Tensor = None, relu: bool = False,
               residual: bool = False):
-    """(dx, dscale, dbias) of AdaIN at x (the ReLU mask from `y` when the
-    forward fused one).  `residual`: the call is the backward of
-    `adain_residual` (counted apart; its x gradient is g itself)."""
+    """(dx, dscale, dbias) of AdaIN at x; `relu`: the forward fused a ReLU,
+    whose mask is recomputed from x, the stats, scale and `bias`.
+    `residual`: the call is the backward of `adain_residual` (counted
+    apart; its x gradient is g itself)."""
     name = "adain_residual_bwd" if residual else "adain_bwd"
-    n, hw, c, splits, dx, ws = _bwd_common(name, x, g, stats, y)
+    n, hw, c, plan = _bwd_common(name, x, g, stats, 1, relu)
     _check_param(name, x, scale, x.shape[:2])
+    if relu:
+        _check_param(name, x, bias, x.shape[:2])
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
     dscale, dbias = _f32(n, c, like=x), _f32(n, c, like=x)
-    _run(name, _lib().dwc_adain_bwd, x.device, x.data_ptr(), _ptr(y),
-         g.data_ptr(), stats.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-         dscale.data_ptr(), dbias.data_ptr(), ws.data_ptr(), n, hw, c, splits,
-         _DTYPE_CODE[x.dtype])
+    _run(name, _lib().dwc_adain_bwd, x.device, x.data_ptr(), g.data_ptr(),
+         stats.data_ptr(), scale.data_ptr(), _ptr(bias) if relu else None,
+         dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), None, None, n, hw, c,
+         _DTYPE_CODE[x.dtype], int(relu), plan.k, plan.resident, plan.smem)
     return dx, dscale, dbias
+
+
+def relu_mask_mismatches(x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor,
+                         scale: torch.Tensor = None,
+                         bias: torch.Tensor = None) -> int:
+    """How many elements of the ReLU mask that the instance-norm (AdaIN
+    with `scale` and `bias`) backward kernel recomputes from x and the
+    stats differ from y > 0, y the forward's fused-ReLU output: the same
+    kernel in a variant that also reads y.  A check, not counted as a
+    launch; synchronises to read the count."""
+    adain = scale is not None
+    name = "relu_mask_mismatches"
+    n, hw, c, plan = _bwd_common(name, x, y, stats, int(adain), True, True)
+    count = torch.zeros(1, dtype=torch.int32, device=x.device)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    if adain:
+        for p in (scale, bias):
+            _check_param(name, x, p, x.shape[:2])
+        d = _f32(2, n, c, like=x)
+        _run(name, _lib().dwc_adain_bwd, x.device, x.data_ptr(), y.data_ptr(),
+             stats.data_ptr(), scale.data_ptr(), bias.data_ptr(), dx.data_ptr(),
+             d[0].data_ptr(), d[1].data_ptr(), y.data_ptr(), count.data_ptr(), n,
+             hw, c, _DTYPE_CODE[x.dtype], 1, plan.k, plan.resident, plan.smem,
+             count=False)
+    else:
+        _run(name, _lib().dwc_instance_norm_bwd, x.device, x.data_ptr(),
+             y.data_ptr(), stats.data_ptr(), dx.data_ptr(), y.data_ptr(),
+             count.data_ptr(), n, hw, c, _DTYPE_CODE[x.dtype], 1, plan.k,
+             plan.resident, plan.smem, count=False)
+    return int(count.item())
 
 
 def layer_norm_ref_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
@@ -256,8 +365,13 @@ def layer_norm_ref_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
     """(dx, dgamma, dbeta) of the reference LayerNorm; dgamma and dbeta are
     summed over the batch."""
     name = "layer_norm_ref_bwd"
-    n, hw, c, splits, dx, ws = _bwd_common(name, x, g, stats)
+    _check_activation(name, x)
+    _check_like(name, x, g)
+    _check_stats(name, x, stats)
     _check_param(name, x, gamma, x.shape[1:2])
+    n, hw, c, splits = _geometry(x)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    ws = _f32(2 * n * splits * c + 2 * n * c + 2 * n, like=x)
     dgamma, dbeta = _f32(c, like=x), _f32(c, like=x)
     _run(name, _lib().dwc_layer_norm_ref_bwd, x.device, x.data_ptr(),
          g.data_ptr(), stats.data_ptr(), gamma.data_ptr(), dx.data_ptr(),

@@ -23,8 +23,12 @@ Statistics are fp32 whatever the activation dtype, eps is 1e-5, and
 the squares on the finished mean, "1pass" takes E[x^2] - mean^2 clamped at 0.
 Both share one backward formula (the two variances are the same function of
 x away from the clamp).  The normalise arithmetic is fp32 too
-(`norm_compute: fp32`); the plain versions keep float64 input in float64.  A fused ReLU's mask is the saved output's y > 0,
-as the Pallas AdaIN backward takes it.
+(`norm_compute: fp32`); the plain versions keep float64 input in float64.
+A fused ReLU's mask: on the CPU the saved output's y > 0, as the Pallas
+AdaIN backward takes it; on the card the backward kernel recomputes the
+forward's value before the ReLU from x and the saved statistics and takes
+its rounding to x's dtype > 0, which is the same mask (`relu_mask_plain`
+is that rule in plain form), so y is not kept.
 """
 
 from __future__ import annotations
@@ -79,12 +83,16 @@ def _bc(p: torch.Tensor) -> torch.Tensor:
     return p[:, :, None, None] if p.dim() == 2 else p[None, :, None, None]
 
 
+def _in32(x, stats):
+    x32 = x.to(_up(x))
+    mean, var = _moments_hw(x32, stats)
+    return (x32 - mean) * torch.rsqrt(var + EPS)
+
+
 def instance_norm_plain(x, relu: bool = False, stats: str = "2pass"):
     """Instance norm, no affine (torch InstanceNorm2d default), optional ReLU."""
     check_stats(stats)
-    x32 = x.to(_up(x))
-    mean, var = _moments_hw(x32, stats)
-    y = (x32 - mean) * torch.rsqrt(var + EPS)
+    y = _in32(x, stats)
     return (F.relu(y) if relu else y).to(x.dtype)
 
 
@@ -100,6 +108,16 @@ def adain_plain(x, scale, bias, relu: bool = False, stats: str = "2pass"):
     check_stats(stats)
     y = _adain32(x, scale, bias, stats)
     return (F.relu(y) if relu else y).to(x.dtype)
+
+
+def relu_mask_plain(x, scale=None, bias=None, stats: str = "2pass"):
+    """The mask of a fused ReLU as the backward kernels take it, from x
+    instead of the forward's output: the instance norm's (AdaIN's, with
+    scale and bias) value before the ReLU, t, rounded to x's dtype, > 0.
+    It is y > 0 of the forward, whose output is that rounding clamped at 0."""
+    check_stats(stats)
+    t = _in32(x, stats) if scale is None else _adain32(x, scale, bias, stats)
+    return t.to(x.dtype) > 0
 
 
 def adain_residual_plain(x, y, scale, bias, stats: str = "2pass"):
@@ -199,9 +217,19 @@ def _f32(p: torch.Tensor) -> torch.Tensor:
     return p.float().contiguous()
 
 
-def _grad_like(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The incoming gradient in the layout and dtype the kernels take."""
-    return g.to(x.dtype).contiguous(memory_format=torch.channels_last)
+# the backward kernels' calls by op and shape: [calls, calls in which
+# `_grad_like` copied the incoming gradient]
+GRAD_COPIES: dict = {}
+
+
+def _grad_like(g: torch.Tensor, x: torch.Tensor, op: str) -> torch.Tensor:
+    """The incoming gradient in the layout and dtype the kernels take (a
+    copy when it arrives in another; counted in GRAD_COPIES)."""
+    out = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    seen = GRAD_COPIES.setdefault(f"{op} {list(x.shape)}", [0, 0])
+    seen[0] += 1
+    seen[1] += out is not g
+    return out
 
 
 class _InstanceNorm(torch.autograd.Function):
@@ -213,7 +241,8 @@ class _InstanceNorm(torch.autograd.Function):
             y, st = kernels.instance_norm(x, relu=relu, two_pass=stats == "2pass")
         else:
             y, st = instance_norm_plain(x, relu, stats), None
-        ctx.save_for_backward(x, y if relu else None, st)
+        # the plain backward's ReLU mask is y > 0; the kernel's comes from x
+        ctx.save_for_backward(x, y if relu and st is None else None, st)
         return y
 
     @staticmethod
@@ -221,7 +250,8 @@ class _InstanceNorm(torch.autograd.Function):
     def backward(ctx, g):
         x, y, st = ctx.saved_tensors
         if st is not None:
-            dx = kernels.instance_norm_bwd(x, _grad_like(g, x), st, y)
+            dx = kernels.instance_norm_bwd(x, _grad_like(g, x, "instance_norm"),
+                                           st, relu=ctx.relu)
         else:
             dx = instance_norm_bwd_plain(x, g, y, ctx.stats)
         return dx, None, None
@@ -237,16 +267,17 @@ class _AdaIN(torch.autograd.Function):
                                   two_pass=stats == "2pass")
         else:
             y, st = adain_plain(x, scale, bias, relu, stats), None
-        ctx.save_for_backward(x, scale, y if relu else None, st)
+        ctx.save_for_backward(x, scale, bias, y if relu and st is None else None,
+                              st)
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, scale, y, st = ctx.saved_tensors
+        x, scale, bias, y, st = ctx.saved_tensors
         if st is not None:
-            dx, dscale, dbias = kernels.adain_bwd(x, _grad_like(g, x), st,
-                                                  scale, y)
+            dx, dscale, dbias = kernels.adain_bwd(
+                x, _grad_like(g, x, "adain"), st, scale, bias, relu=ctx.relu)
         else:
             dx, dscale, dbias = adain_bwd_plain(x, scale, g, y, ctx.stats)
         return dx, dscale, dbias, None, None
@@ -270,8 +301,8 @@ class _AdaINResidual(torch.autograd.Function):
     def backward(ctx, g):
         y, scale, st = ctx.saved_tensors
         if st is not None:
-            dy, dscale, dbias = kernels.adain_bwd(y, _grad_like(g, y), st, scale,
-                                                  residual=True)
+            dy, dscale, dbias = kernels.adain_bwd(
+                y, _grad_like(g, y, "adain_residual"), st, scale, residual=True)
         else:
             dy, dscale, dbias = adain_bwd_plain(y, scale, g, None, ctx.stats)
         return g, dy, dscale, dbias, None
@@ -295,8 +326,8 @@ class _LayerNormRef(torch.autograd.Function):
     def backward(ctx, g):
         x, gamma, st = ctx.saved_tensors
         if st is not None:
-            dx, dgamma, dbeta = kernels.layer_norm_ref_bwd(x, _grad_like(g, x),
-                                                           st, gamma)
+            dx, dgamma, dbeta = kernels.layer_norm_ref_bwd(
+                x, _grad_like(g, x, "layer_norm_ref"), st, gamma)
         else:
             dx, dgamma, dbeta = layer_norm_ref_bwd_plain(x, gamma, g, ctx.stats)
         return dx, dgamma, dbeta, None

@@ -7,7 +7,10 @@ that machine need not have):
 
 fp32 within atol 1e-4 (summation order only); bf16 within 2 bf16 ulps of
 the rounded fp32 plain result plus that atol.  Shapes are small and ragged
-(rows not a multiple of a block's row chunk; channel counts 8 to 256).
+(rows not a multiple of a block's row chunk; channel counts 8 to 256); the
+instance-norm and AdaIN backward kernel is also held at every shape of the
+flagship training step, run twice (bit-equal), with its recomputed ReLU
+mask counted against y > 0.
 """
 
 import pytest
@@ -179,6 +182,96 @@ def test_backward_kernel_matches_plain(card, op, relu, shape, dtype, stats):
         scale = float(w.abs().max())
         err = float((a.float() - w.float()).abs().max())
         assert err <= rel * scale + 1e-6, (err, scale)
+
+
+# -------------------------------- the instance-norm and AdaIN backward kernel
+
+# (n, c, h, w): the instance-norm and AdaIN backward sites of one flagship
+# training step at batch 16 (chip_smoke.py's BWD_SITES), then ragged shapes:
+# one sample, 7 x 9 pixels, fewer pixels than blocks in a cluster (5, 6, 1),
+# 8 and 16 channels
+CLUSTER_SHAPES = [(16, 64, 128, 128), (48, 64, 128, 128), (16, 128, 64, 64),
+                  (48, 128, 64, 64), (16, 256, 32, 32), (48, 256, 32, 32),
+                  (64, 256, 32, 32), (16, 512, 16, 16), (1, 64, 12, 12),
+                  (2, 16, 7, 9), (3, 8, 1, 5), (1, 8, 2, 3), (2, 16, 1, 1)]
+# (forward op, fused relu): the ReLU on and off, and the residual form
+CLUSTER_OPS = [("instance_norm", True), ("instance_norm", False), ("adain", True),
+               ("adain", False), ("adain_residual", False)]
+
+
+def _cluster_case(op, relu, shape, dtype, stats, dev, seed):
+    """The forward kernel's output and statistics at `shape`, an incoming
+    gradient, and a function that runs the backward kernel on them."""
+    args = _args(op, shape, dtype, dev, seed)
+    two_pass = stats == "2pass"
+    if op == "instance_norm":
+        out, st = kernels.instance_norm(args[0], relu=relu, two_pass=two_pass)
+        run = lambda g: (kernels.instance_norm_bwd(args[0], g, st, relu=relu),)
+    elif op == "adain":
+        out, st = kernels.adain(*args, relu=relu, two_pass=two_pass)
+        run = lambda g: kernels.adain_bwd(args[0], g, st, args[1], args[2], relu=relu)
+    else:
+        out, st = kernels.adain_residual(*args, two_pass=two_pass)
+        run = lambda g: kernels.adain_bwd(args[1], g, st, args[2], residual=True)
+    g = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                    device=dev).to(dtype).contiguous(memory_format=torch.channels_last)
+    return args, out, st, g, run
+
+
+@pytest.mark.parametrize("stats", ["2pass", "1pass"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op,relu", CLUSTER_OPS)
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_cluster_backward_matches_plain(card, shape, op, relu, dtype, stats):
+    """The one-launch backward against the plain backward (the mask from the
+    forward kernel's y > 0): fp32 within 1e-4 of each gradient's largest
+    magnitude, bf16 within 2 %, as chip_smoke.py's phase 5; a second run
+    bit-equal, dx and dscale / dbias; the mask the kernel recomputes from x
+    agrees with y > 0 at every element."""
+    args, out, st, g, run = _cluster_case(op, relu, shape, dtype, stats, card, 3)
+    counter = BWD[op]
+    before = kernels.LAUNCHES[counter]
+    got = run(g)
+    again = run(g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[counter] == before + 2
+    want = _plain_grads(op, args, relu, stats, out, g)
+    if op == "adain_residual":
+        want = want[1:]   # the kernel's are y's; x's gradient is g itself
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        scale = float(w.abs().max())
+        err = float((a.float() - w.float()).abs().max())
+        assert torch.isfinite(a).all() and err <= rel * scale + 1e-6, (err, scale)
+    if relu:
+        affine = args[1:3] if op == "adain" else ()
+        assert kernels.relu_mask_mismatches(args[0], out, st, *affine) == 0
+
+
+def test_cluster_backward_is_one_kernel_per_call(card):
+    """One call of each backward at a training-step shape launches exactly
+    one CUDA kernel (chip_smoke.py's count of the kernel nodes of a CUDA
+    graph of one call); the LayerNorm's backward keeps its four."""
+    import chip_smoke
+    for op, relu in CLUSTER_OPS:
+        _, _, _, g, run = _cluster_case(op, relu, (16, 256, 32, 32), torch.bfloat16,
+                                        "1pass", card, 4)
+        assert chip_smoke.kernels_per_call(lambda: run(g)) == 1, (op, relu)
+    x, gamma, beta = _args("layer_norm_ref", (2, 64, 8, 8), torch.bfloat16, card, 4)
+    _, st = kernels.layer_norm_ref(x, gamma, beta)
+    assert chip_smoke.kernels_per_call(
+        lambda: kernels.layer_norm_ref_bwd(x, x, st, gamma)) == 4
+
+
+def test_cluster_backward_refuses_what_its_plan_cannot_take(card):
+    n, c = 70000, 8   # more samples than a grid's second dimension takes
+    x = torch.zeros(n, c, 1, 1, device=card).contiguous(memory_format=torch.channels_last)
+    st = torch.zeros(n, 2, c, device=card)
+    with pytest.raises(ValueError, match="plan"):
+        kernels.instance_norm_bwd(x, x, st)
+    with pytest.raises(ValueError, match="plan"):
+        kernels.adain_bwd(x, x, st, torch.ones(n, c, device=card))
 
 
 # ------------------------------------------------------------------ the stem
