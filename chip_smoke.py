@@ -12,7 +12,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    modes, against its plain PyTorch version on the card; kernel, plain and
    library (F.instance_norm, for IN and AdaIN) device times (20 calls in a
    CUDA graph, CUDA events, cold L2) beside the bytes bound, and the
-   kernel's eager time (wrapper included);
+   kernel's eager time (wrapper included); the instance norm and AdaIN
+   (rows 1-3, one cluster kernel per call) also run twice (bit-equal, y and
+   the statistics), must be one CUDA kernel a call (the kernel nodes of a
+   CUDA graph of one call), and log their plan (blocks per sample, shared
+   memory, resident share of a slab, clusters that fit);
 3. the slice in fp32 on the card (kernels) against the CPU (plain
    versions), flagship width, 4 images, TF32 off: max abs diff <= 2e-3;
 4. the slice at flagship width in bf16 (`configs/celeba_faces.yaml`, batch
@@ -25,7 +29,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    against its plain PyTorch backward on the card (dx and the parameter
    gradients), run twice (bit-equal), after the forward kernel at the same
    shape against its plain forward with phase 2's tolerance (and timed
-   there, as phase 2 times it: rows 1-4 per training step); times and bound
+   there, as phase 2 times it: rows 1-4 per training step, with phase 2's
+   checks of rows 1-3 as `fwd_*` keys); times and bound
    as in phase 2, the bound counting x and the incoming gradient read once
    and dx written once; the library time for the instance norm and AdaIN is
    the backward of `F.instance_norm` (no ReLU; AdaIN as one call on x
@@ -77,10 +82,16 @@ The last lines are the `kernels` JSON (nine kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
 forward and backward; a forward kernel's times and `launches` are per
 served batch, with `launches_train` its launches per training step and
-`ms_train` / `bound_ms_train` its time and bound per step; the
+`ms_train` / `bound_ms_train` its time and bound per step, rows 1-3 with
+`kernels_per_call` / `kernels_per_call_train`; the
 stem entries carry phase 8's HMMA counts of the kernels they run as
 `hmma`), the nvidia-smi line and `{"ok": true, "device": {...}}`.  Without
 a card it exits 1 and prints no result.
+
+Not run by `main`: `sweep_fwd_plans()` times rows 1-3 at every serving and
+training site under each forward layout (blocks per SM x blocks per
+sample), and `trace_fwd_sites()` shows where one call's time goes in its
+blocks (the card's clock at six points of the kernel).
 """
 
 from __future__ import annotations
@@ -231,20 +242,50 @@ def site_inputs(kernel, shape, dtype, g):
             0.1 * torch.randn(c, generator=g, device=dev))
 
 
-def run_kernel_stats(kernel, args, relu, stats):
-    """The forward kernel: (output, saved statistics)."""
+def run_kernel_stats(kernel, args, relu, stats, plan=None):
+    """The forward kernel: (output, saved statistics); `plan`: rows 1-3's
+    layout if not `kernels.fwd_plan`'s (the plan sweep)."""
     two_pass = stats == "2pass"
     if kernel == "instance_norm":
-        return kernels.instance_norm(*args, relu=relu, two_pass=two_pass)
+        return kernels.instance_norm(*args, relu=relu, two_pass=two_pass, plan=plan)
     if kernel == "adain":
-        return kernels.adain(*args, relu=relu, two_pass=two_pass)
+        return kernels.adain(*args, relu=relu, two_pass=two_pass, plan=plan)
     if kernel == "adain_residual":
-        return kernels.adain_residual(*args, two_pass=two_pass)
+        return kernels.adain_residual(*args, two_pass=two_pass, plan=plan)
     return kernels.layer_norm_ref(*args, two_pass=two_pass)
 
 
-def run_kernel(kernel, args, relu, stats):
-    return run_kernel_stats(kernel, args, relu, stats)[0]
+def run_kernel(kernel, args, relu, stats, plan=None):
+    return run_kernel_stats(kernel, args, relu, stats, plan)[0]
+
+
+# the forwards that are one cluster kernel per call (rows 1-3): (affine,
+# residual) of `kernels.fwd_clusters`
+CLUSTER_FWD = {"instance_norm": (False, False), "adain": (True, False),
+               "adain_residual": (True, True)}
+
+
+def fwd_cluster_checks(kernel, args, relu, stats, label):
+    """Rows 1-3: two runs bit-equal (y and the statistics), one CUDA kernel
+    per call (the kernel nodes of a CUDA graph of one call), and the plan of
+    the call: blocks per sample, shared memory of a block, the resident
+    share of a slab, the clusters that fit on the card at once."""
+    first = run_kernel_stats(kernel, args, relu, stats)
+    again = run_kernel_stats(kernel, args, relu, stats)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{label}: two runs differ")
+    per_call = kernels_per_call(lambda: run_kernel_stats(kernel, args, relu, stats))
+    if per_call != 1:
+        raise AssertionError(f"{label}: {per_call} kernels per call")
+    x = args[1] if kernel == "adain_residual" else args[0]
+    n, c, h, w = x.shape
+    plan = kernels.fwd_plan(n, h * w, c, x.dtype)
+    affine, residual = CLUSTER_FWD[kernel]
+    return dict(kernels_per_call=per_call, bit_equal_runs=True, k=plan.k,
+                smem=plan.smem, resident_share=plan.resident / plan.rows,
+                clusters=kernels.fwd_clusters(0, affine, x.dtype, relu, residual,
+                                              c, plan))
 
 
 def run_plain(kernel, args, relu, stats):
@@ -350,6 +391,10 @@ def check_site(kernel, shape, relu, dtype, stats, g):
     out = run_kernel(kernel, args, relu, stats)
     torch.cuda.synchronize()
     max_err = check_forward(kernel, shape, relu, dtype, stats, args, out)
+    extra = {}
+    if kernel in CLUSTER_FWD:
+        extra = fwd_cluster_checks(kernel, args, relu, stats,
+                                   f"{kernel} {shape} {dtype} {stats} relu={relu}")
 
     # timing: rotate over copies of the inputs so the L2 is cold, as on the
     # path, where each norm reads a fresh conv output
@@ -368,7 +413,7 @@ def check_site(kernel, shape, relu, dtype, stats, g):
     return dict(kernel=kernel, shape=list(shape), relu=relu,
                 dtype=str(dtype).replace("torch.", ""), stats=stats,
                 max_abs_err=max_err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, **extra)
 
 
 def phase_kernels():
@@ -509,6 +554,9 @@ def check_bwd_site(counter, fwd, shape, relu, dtype, stats, g):
     # the forward at the training shape first: `out` is the plain
     # backward's mask; its time there is the forward's per-step cost
     fwd_err = check_forward(fwd, shape, relu, dtype, stats, args, out)
+    fwd_extra = {} if fwd not in CLUSTER_FWD else {
+        f"fwd_{k}": v for k, v in fwd_cluster_checks(
+            fwd, args, relu, stats, f"{fwd} {shape} {dtype} {stats} relu={relu}").items()}
     fwd_copies = [args] + [tuple(a.clone(memory_format=torch.preserve_format)
                                  if a.dim() == 4 else a for a in args)
                            for _ in range(max(0, math.ceil(COLD_L2_BYTES / sum(
@@ -597,7 +645,7 @@ def check_bwd_site(counter, fwd, shape, relu, dtype, stats, g):
                 fwd_max_abs_err=fwd_err, ms=ms, eager_ms=eager_ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, fwd=fwd, fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound_ms,
-                **extra)
+                **fwd_extra, **extra)
 
 
 def phase_backward():
@@ -612,6 +660,103 @@ def phase_backward():
                 rows.append(row)
                 log("bwd_check " + json.dumps(row))
         torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------- the forward plan sweep
+
+SWEEP_PER_SM = (1, 2, 3)   # blocks per SM: a block's shared memory
+SWEEP_K = (4, 6, 7, 8)     # blocks per sample
+
+
+def fwd_sweep_sites():
+    """Rows 1-3's sites: (kernel, NCHW shape, relu, calls per served batch,
+    forward calls per training step), merged where a shape recurs."""
+    sites = {}
+    for kernel, shape, relu, calls in SITES:
+        if kernel in CLUSTER_FWD:
+            sites.setdefault((kernel, shape, relu), [0, 0])[0] += calls
+    for _, fwd, shape, relu, _, fwd_calls in BWD_SITES:
+        if fwd in CLUSTER_FWD:
+            sites.setdefault((fwd, shape, relu), [0, 0])[1] += fwd_calls
+    return [key + tuple(calls) for key, calls in sites.items()]
+
+
+def sweep_fwd_plans(dtype=torch.bfloat16, stats="1pass"):
+    """Rows 1-3 at every serving and training site under each plan (blocks
+    per SM x blocks per sample), each checked against its plain version:
+    device ms per site (as phase 2: a CUDA graph, cold L2), and per plan
+    the sums per served batch and per training step.  First, per site, the device ms of a plain copy of the
+    activation (`Tensor.clone`: the instance norm's least traffic, read
+    once and written once) as a yardstick.  Prints one JSON line per plan
+    and returns them.
+
+        python -c "import chip_smoke as c; c.sweep_fwd_plans()"
+    """
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    sites = fwd_sweep_sites()
+    inputs = []
+    for kernel, shape, relu, _, _ in sites:
+        args = site_inputs(kernel, shape, dtype, g)
+        in_bytes = sum(a.numel() * a.element_size() for a in args)
+        inputs.append([args] + [tuple(a.clone(memory_format=torch.preserve_format)
+                                      if a.dim() == 4 else a for a in args)
+                                for _ in range(max(0, math.ceil(COLD_L2_BYTES / in_bytes) - 1))])
+    copy_ms = [device_ms(lambda i: copies[i % len(copies)][0].clone(
+        memory_format=torch.preserve_format)) for copies in inputs]
+    log("fwd_sweep_copy " + json.dumps([dict(shape=list(site[1]), copy_ms=ms)
+                                        for site, ms in zip(sites, copy_ms)]))
+    results = []
+    for per_sm in SWEEP_PER_SM:
+        for k in SWEEP_K:
+            row = dict(per_sm=per_sm, k=k, sites=[], ms_batch=0.0, ms_step=0.0)
+            for (kernel, shape, relu, per_batch, per_step), copies in zip(sites, inputs):
+                n, c, h, w = shape
+                plan = kernels.fwd_plan(n, h * w, c, dtype, per_sm=per_sm, k=k)
+                out = run_kernel(kernel, copies[0], relu, stats, plan)
+                torch.cuda.synchronize()
+                err = check_forward(kernel, shape, relu, dtype, stats, copies[0], out)
+                ms = device_ms(lambda i: run_kernel(kernel, copies[i % len(copies)],
+                                                    relu, stats, plan))
+                affine, residual = CLUSTER_FWD[kernel]
+                row["sites"].append(dict(
+                    kernel=kernel, shape=list(shape), relu=relu, ms=ms, max_abs_err=err,
+                    resident_share=plan.resident / plan.rows, smem=plan.smem,
+                    clusters=kernels.fwd_clusters(0, affine, dtype, relu, residual, c,
+                                                  plan),
+                    calls_per_batch=per_batch, calls_per_step=per_step))
+                row["ms_batch"] += ms * per_batch
+                row["ms_step"] += ms * per_step
+            log("fwd_sweep " + json.dumps(row))
+            results.append(row)
+    return results
+
+
+def trace_fwd_sites(dtype=torch.bfloat16, stats="1pass"):
+    """Where a forward call of rows 1-3 spends its time, at each serving and
+    training site with its default plan: `kernels.fwd_trace` on a cold
+    copy, after a warm-up; per phase the median over the blocks of its
+    duration (µs), the spread of the blocks' start times, and the span from
+    the first start to the last end.  Prints one JSON line per site.
+
+        python -c "import chip_smoke as c; c.trace_fwd_sites()"
+    """
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    phases = ("sums", "block_sums", "exchange", "apply", "exit")
+    rows = []
+    for kernel, shape, relu, _, _ in fwd_sweep_sites():
+        warm, cold = site_inputs(kernel, shape, dtype, g), site_inputs(kernel, shape, dtype, g)
+        run_kernel(kernel, warm, relu, stats)
+        x = cold[1] if kernel == "adain_residual" else cold[0]
+        t = kernels.fwd_trace(lambda: run_kernel(kernel, cold, relu, stats), x).cpu()
+        t = (t - t[..., 0].min()).double() / 1e3            # µs from the first start
+        d = t[..., 1:] - t[..., :-1]
+        row = dict(kernel=kernel, shape=list(shape), relu=relu,
+                   start_spread_us=float(t[..., 0].max()),
+                   span_us=float(t[..., 5].max()),
+                   **{f"{p}_us": float(d[..., i].median()) for i, p in enumerate(phases)})
+        log("fwd_trace " + json.dumps(row))
+        rows.append(row)
     return rows
 
 
@@ -1153,14 +1298,19 @@ def main() -> int:
         if sum(r["fwd_calls_per_step"] for r in train) != train_launches[name]:
             raise AssertionError(f"{name}: the training sites do not add up to "
                                  f"its {train_launches[name]} launches per step")
+        mine = [r for r in rows if r["kernel"] == name]
+        extra = {"launches_train": train_launches[name],
+                 "ms_train": sum(r["fwd_ms"] * r["fwd_calls_per_step"] for r in train),
+                 "bound_ms_train": sum(r["fwd_bound_ms"] * r["fwd_calls_per_step"]
+                                       for r in train)}
+        if name in CLUSTER_FWD:
+            # rows 1-3: CUDA kernels per call, at the serving and training sites
+            extra["kernels_per_call"] = max(r["kernels_per_call"] for r in mine)
+            extra["kernels_per_call_train"] = max(
+                r["fwd_kernels_per_call"] for r in bwd_rows if r["fwd"] == name)
         summary.append(entry(
-            name, REPLACES[name], [r for r in rows if r["kernel"] == name],
-            "calls_per_batch", "served batch of 32, bf16, " + cfg.norm_stats,
-            serve_launches[name], {
-                "launches_train": train_launches[name],
-                "ms_train": sum(r["fwd_ms"] * r["fwd_calls_per_step"] for r in train),
-                "bound_ms_train": sum(r["fwd_bound_ms"] * r["fwd_calls_per_step"]
-                                      for r in train)}))
+            name, REPLACES[name], mine, "calls_per_batch",
+            "served batch of 32, bf16, " + cfg.norm_stats, serve_launches[name], extra))
     for name, counters in (("instance_norm_bwd", ("instance_norm_bwd",)),
                            ("adain_bwd", ("adain_bwd", "adain_residual_bwd")),
                            ("layer_norm_ref_bwd", ("layer_norm_ref_bwd",))):

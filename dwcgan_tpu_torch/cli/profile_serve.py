@@ -52,10 +52,8 @@ GROUPS = (
     ("norm backward kernels (this port)", ("norm_bwd_cluster_kernel",
                                            "ln_bwd_",
                                            "ln_param_grads_kernel")),
-    # "::apply_kernel", not "apply_kernel": PyTorch's optimizers run
-    # `multi_tensor_apply_kernel`
-    ("norm kernels (this port)", ("::moments_kernel", "::finalize_kernel",
-                                  "::apply_kernel")),
+    ("norm kernels (this port)", ("norm_fwd_cluster_kernel", "ln_moments_kernel",
+                                  "ln_finalize_kernel", "ln_apply_kernel")),
     ("lstm", ("lstm", "rnn", "persist")),
     ("convolution", ("conv", "xmma", "implicit", "nchw", "nhwc", "winograd",
                      "fft")),

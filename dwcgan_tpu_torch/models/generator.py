@@ -35,18 +35,18 @@ from dwcgan_tpu_torch.config import Config, GenConfig
 from dwcgan_tpu_torch.device import resolve_device
 from dwcgan_tpu_torch.ops.blocks import (AdaINResBlocks, Conv2dBlock, MLP,
                                          ResBlocks, channels_last, conv2d,
-                                         dropout, pad2d, sigmoid, weights_init)
+                                         dropout, linear, pad2d, sigmoid,
+                                         weights_init)
 from dwcgan_tpu_torch.ops.lstm import MaskedBiLSTM
 from dwcgan_tpu_torch.ops.norms import check_stats
 from dwcgan_tpu_torch.ops.resize import upsample2x
 
 
 def _fused_linear(x, linears):
-    """The per-attribute Linear heads on one input, as one matmul; the
-    product and the bias add round apart, as a flax `Dense` does."""
-    w = torch.cat([m.weight for m in linears]).to(x.dtype)
-    b = torch.cat([m.bias for m in linears]).to(x.dtype)
-    return x @ w.t() + b
+    """The per-attribute Linear heads on one input, as one `linear` (one
+    flax `Dense` of num_cls * c_dim outputs in the JAX model)."""
+    return linear(x, torch.cat([m.weight for m in linears]),
+                  torch.cat([m.bias for m in linears]))
 
 
 class ContentEncoder(nn.Module):
@@ -110,11 +110,9 @@ class StyleEncoder(nn.Module):
         feats = x.mean(dim=(2, 3))   # global average pool -> [N, d]
         if self.use_map:
             m0, m3 = self.mapping[0], self.mapping[3]
-            feats = F.relu(F.linear(feats, m0.weight.to(feats.dtype),
-                                    m0.bias.to(feats.dtype)))
+            feats = F.relu(linear(feats, m0.weight, m0.bias))
             feats = dropout(feats, self.p_map, self.training, rng)
-            feats = F.relu(F.linear(feats, m3.weight.to(feats.dtype),
-                                    m3.bias.to(feats.dtype)))
+            feats = F.relu(linear(feats, m3.weight, m3.bias))
         shape = (x.shape[0],) + self.shape
         return (_fused_linear(feats, self.fcs).reshape(shape),
                 _fused_linear(feats, self.fcvars).reshape(shape))

@@ -146,6 +146,19 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     return F.conv2d(x, w, **kw) + bias.to(x.dtype)[:, None, None]
 
 
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`F.linear` in x's dtype, the bias added as flax's `Dense` adds it:
+    below fp32 the product rounds to x's dtype and its sum with the bias,
+    cast to that dtype, rounds again (flax `nn.Dense(dtype=...)`,
+    dwcgan_tpu/ops/blocks.py:271-272, dwcgan_tpu/models/generator.py:125-136).
+    fp32 keeps the bias in the product, as `conv2d` does."""
+    w = weight.to(x.dtype)
+    if bias is None or x.dtype in (torch.float32, torch.float64):
+        return F.linear(x, w, None if bias is None else bias.to(x.dtype))
+    return F.linear(x, w) + bias.to(x.dtype)
+
+
 class LayerNormRef(nn.Module):
     """Per-channel affine of the reference LayerNorm (`gamma`, `beta`)."""
 
@@ -232,8 +245,7 @@ class LinearBlock(nn.Module):
         self.act = activation(activ, linear_block=True)
 
     def forward(self, x):
-        return self.act(F.linear(x, self.fc.weight.to(x.dtype),
-                                 self.fc.bias.to(x.dtype)))
+        return self.act(linear(x, self.fc.weight, self.fc.bias))
 
 
 class ResBlock(nn.Module):

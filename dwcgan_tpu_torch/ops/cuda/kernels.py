@@ -16,11 +16,14 @@ per channel; the LayerNorm's 1/(std+eps) per sample, at channel 0).  The
 backward takes it back, so it never recomputes the moments.  Autograd is
 `ops/norms.py`'s business: these wrappers take and return plain tensors.
 
-The instance-norm and AdaIN backwards are one cluster kernel per call, laid
-out by `bwd_plan`: k blocks per sample, each keeping as many rows of its
-slab of x and g in shared memory as fit.  A fused ReLU's mask is recomputed
-in the kernel from x and the statistics; `relu_mask_mismatches` counts where
-that mask differs from a forward output's y > 0 (a check; 0 is right).
+The instance norm and AdaIN, forward and backward, are one cluster kernel
+per call, laid out by `fwd_plan` and `bwd_plan`: k blocks per sample, each
+keeping as many rows of its slab of x (the backward: of x and g) in shared
+memory as its plan gives it.  A fused ReLU's mask is recomputed in the
+backward kernel from x and the statistics; `relu_mask_mismatches` counts
+where that mask differs from a forward output's y > 0 (a check; 0 is
+right).  The reference LayerNorm keeps a (row chunk, sample) split of
+three or four launches with an fp32 workspace.
 
 The sources are `dwcgan_tpu_torch/csrc/norm_kernels.cu` and
 `stem_kernels.cu`; the library is built with nvcc at first use
@@ -45,15 +48,20 @@ LAUNCHES = {"instance_norm": 0, "adain": 0, "adain_residual": 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
 _THREADS = 256                                 # threads per block (csrc)
-_BLOCKS_PER_SM = 4
+_SPLIT_BLOCKS_PER_SM = 4   # the LayerNorm's split kernels
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, y, stats, ws, n, hw, c, splits, dtype, two_pass, relu, stream
-    "dwc_instance_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, scale, bias, residual, y, stats, ws, n, hw, c, splits, dtype,
-    # two_pass, relu, stream
-    "dwc_adain": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, y, stats, n, hw, c, dtype, two_pass, relu, k, resident, smem, stream
+    "dwc_instance_norm": [_P] * 3 + [_I] * 9 + [_P],
+    # x, scale, bias, residual, y, stats, n, hw, c, dtype, two_pass, relu, k,
+    # resident, smem, stream
+    "dwc_adain": [_P] * 6 + [_I] * 9 + [_P],
+    # affine (0 IN, 1 AdaIN), dtype, relu, residual, c, k, resident, smem,
+    # *clusters
+    "dwc_norm_fwd_clusters": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
+    # buf (the forward's phase trace, or NULL)
+    "dwc_norm_fwd_trace": [_P],
     # x, gamma, beta, y, stats, ws, n, hw, c, splits, dtype, two_pass, stream
     "dwc_layer_norm_ref": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, g, stats, dx, y (the check's, or NULL), mismatch (or NULL), n, hw,
@@ -129,12 +137,13 @@ def _check_param(name: str, x: torch.Tensor, p: torch.Tensor, shape) -> None:
 
 
 def _geometry(x: torch.Tensor):
-    """(n, hw, c, splits): rows of each sample are cut into `splits` chunks
-    so that about _BLOCKS_PER_SM blocks per SM are in flight."""
+    """(n, hw, c, splits) of the LayerNorm's split kernels: rows of each
+    sample are cut into `splits` chunks so that about _SPLIT_BLOCKS_PER_SM
+    blocks per SM are in flight."""
     n, c, h, w = x.shape
     hw = h * w
     lanes = _THREADS // (c // _VEC[x.dtype])
-    target = -(-_BLOCKS_PER_SM * _sm_count(x.device.index or 0) // n)
+    target = -(-_SPLIT_BLOCKS_PER_SM * _sm_count(x.device.index or 0) // n)
     return n, hw, c, max(1, min(target, -(-hw // lanes)))
 
 
@@ -158,130 +167,217 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _forward(name: str, fn, x: torch.Tensor, args_before, args_after):
-    n, hw, c, splits = _geometry(x)
-    y = torch.empty_like(x, memory_format=torch.channels_last)
-    stats = _f32(n, 2, c, like=x)
-    ws = _f32(2 * n * splits * c, like=x)
-    _run(name, fn, x.device, x.data_ptr(), *args_before, y.data_ptr(),
-         stats.data_ptr(), ws.data_ptr(), n, hw, c, splits,
-         _DTYPE_CODE[x.dtype], *args_after)
-    return y, stats
+# ------------------------------------------------------------ cluster plans
 
-
-def instance_norm(x: torch.Tensor, relu: bool = False, two_pass: bool = True):
-    """Per-(n, c) instance norm over H*W, no affine, optional fused ReLU.
-    Returns (y, stats)."""
-    _check_activation("instance_norm", x)
-    return _forward("instance_norm", _lib().dwc_instance_norm, x, (),
-                    (int(two_pass), int(relu)))
-
-
-def adain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-          relu: bool = False, two_pass: bool = True):
-    """IN(x) * scale[n, c] + bias[n, c], optional fused ReLU.
-    Returns (y, stats)."""
-    _check_activation("adain", x)
-    for p in (scale, bias):
-        _check_param("adain", x, p, x.shape[:2])
-    return _forward("adain", _lib().dwc_adain, x,
-                    (scale.data_ptr(), bias.data_ptr(), None),
-                    (int(two_pass), int(relu)))
-
-
-def adain_residual(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
-                   bias: torch.Tensor, two_pass: bool = True):
-    """x + AdaIN(y): the add is fused into the kernel's store.  Returns
-    (out, stats of y)."""
-    _check_activation("adain_residual", y)
-    _check_like("adain_residual", y, x)
-    for p in (scale, bias):
-        _check_param("adain_residual", y, p, y.shape[:2])
-    return _forward("adain_residual", _lib().dwc_adain, y,
-                    (scale.data_ptr(), bias.data_ptr(), x.data_ptr()),
-                    (int(two_pass), 0))
-
-
-def layer_norm_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                   two_pass: bool = True):
-    """Reference LayerNorm: per-sample mean and unbiased std over C*H*W,
-    (x - mean) / (std + eps) * gamma[c] + beta[c].  Returns (y, stats)."""
-    _check_activation("layer_norm_ref", x)
-    for p in (gamma, beta):
-        _check_param("layer_norm_ref", x, p, x.shape[1:2])
-    return _forward("layer_norm_ref", _lib().dwc_layer_norm_ref, x,
-                    (gamma.data_ptr(), beta.data_ptr()), (int(two_pass),))
-
-
-# ------------------------------------------------------------------ backward
-
-def _check_stats(name: str, x: torch.Tensor, stats: torch.Tensor) -> None:
-    _check_param(name, x, stats, (x.shape[0], 2, x.shape[1]))
-
-
-_SMEM_HALF = 233472 // 2 - 1024   # two blocks per SM: half its 228 KB, less
-                                  # the 1 KB each block reserves
+_SMEM_SM = 233472    # shared memory of an SM (228 KB)
+_SMEM_RESERVED = 1024   # what the card reserves of it for each block
 _CLUSTER = 8         # blocks per sample: the portable cluster size
 _CHUNKS = 4          # bulk copies per block (csrc kChunks)
+_BWD_PER_SM = 2      # the backward's blocks per SM
 
 
-class BwdPlan(NamedTuple):
-    """How the cluster backward lays out one call (csrc `bwd_smem`)."""
+def smem_budget(per_sm: int) -> int:
+    """Shared memory of a block when `per_sm` blocks share each SM."""
+    return _SMEM_SM // per_sm - _SMEM_RESERVED
+
+
+class ClusterPlan(NamedTuple):
+    """How a cluster kernel lays out one call (csrc `fwd_smem`,
+    `bwd_smem`): a cluster of k blocks per sample."""
     k: int          # blocks per sample, one cluster
     rows: int       # rows of the longest slab, ceil(hw / k)
     resident: int   # rows a block keeps in shared memory (the rest streams)
     smem: int       # dynamic shared memory of a block, bytes
 
 
-def bwd_slabs(hw: int, k: int):
+def cluster_slabs(hw: int, k: int):
     """Rows [start, end) of each block of a sample's cluster, by rank, as
-    the kernel cuts them (rank * hw // k)."""
+    the kernels cut them (rank * hw // k)."""
     return [(r * hw // k, (r + 1) * hw // k) for r in range(k)]
 
 
-def bwd_plan(n: int, hw: int, c: int, dtype: torch.dtype) -> BwdPlan:
-    """The cluster backward's layout for an [n, c, h, w] activation with
-    hw = h * w: k = min(8, hw) blocks per sample, each keeping the first
-    `resident` rows of its slab of x and g in shared memory beside the
-    block's sums (2 * 256 * V lane partials, 4 * c totals, the mbarriers),
-    as many as fit in half an SM, so that two blocks share each SM: one's
-    loads overlap the other's sums and stores, and twice the clusters run
-    at once (30 of 8 blocks on the H100 against 15 at a block's full 227
-    KB).  On the H100 that beat keeping twice the rows resident at every
-    training-step site, the slabs that then stream most of their rows
-    twice too.  Raises on a shape it cannot take."""
+def _cluster_plan(name: str, n: int, hw: int, c: int, dtype: torch.dtype,
+                  staged: int, fixed_floats: int, budget: int,
+                  k: int = None) -> ClusterPlan:
+    """k = min(8, hw) blocks per sample (or `k`), each keeping the first
+    `resident` rows of its slab of the `staged` tensors in shared memory
+    beside the block's sums (2 * 256 * V lane partials, `fixed_floats` * c
+    floats, four mbarriers), as many as fit in `budget` bytes.  Raises on
+    a shape the kernels cannot take."""
     if dtype not in _VEC:
-        raise TypeError(f"bwd_plan: dtype {dtype} not supported")
+        raise TypeError(f"{name}: dtype {dtype} not supported")
     vec, size = _VEC[dtype], torch.finfo(dtype).bits // 8
     if n < 1 or n > 65535 or hw < 1 or c < vec or c % vec or c // vec > _THREADS:
-        raise ValueError(f"bwd_plan: no plan for n {n}, hw {hw}, c {c}, {dtype}")
-    k = min(_CLUSTER, hw)
+        raise ValueError(f"{name}: no plan for n {n}, hw {hw}, c {c}, {dtype}")
+    k = min(k or _CLUSTER, _CLUSTER, hw)
     rows = -(-hw // k)
-    fixed = 2 * _THREADS * vec * 4 + 4 * c * 4 + _CHUNKS * 8
-    per_row = 2 * c * size
-    resident = min(rows, (_SMEM_HALF - fixed) // per_row)
+    fixed = 2 * _THREADS * vec * 4 + fixed_floats * c * 4 + _CHUNKS * 8
+    per_row = staged * c * size
+    resident = min(rows, (budget - fixed) // per_row)
     if resident < 1:
-        raise ValueError(f"bwd_plan: not one row of c {c} fits in shared memory")
-    return BwdPlan(k, rows, resident, fixed + resident * per_row)
+        raise ValueError(f"{name}: not one row of c {c} fits in {budget} bytes "
+                         "of shared memory")
+    return ClusterPlan(k, rows, resident, fixed + resident * per_row)
+
+
+# The cluster forward's layout: 6 blocks per sample, a block's shared
+# memory capped at a whole SM's 227 KB.  A block takes only what its slab
+# needs, so the small slabs share an SM (two blocks of 109 KB at [32, 256,
+# 32, 32] in bf16, every cluster on the card at once) and the large ones
+# keep most of their rows resident.  On the H100 it beat every other
+# layout of `chip_smoke.sweep_fwd_plans` (k 4, 6, 7, 8 x 1-3 blocks per
+# SM), per served batch and per training step.
+_FWD_K = 6
+_FWD_PER_SM = 1
+
+
+def fwd_plan(n: int, hw: int, c: int, dtype: torch.dtype, per_sm: int = None,
+             k: int = None) -> ClusterPlan:
+    """The cluster forward's layout for an [n, c, h, w] activation with
+    hw = h * w: k = min(6, hw) blocks per sample, each staging the first
+    rows of its slab of x, as many as fit beside 5 * c floats of sums and
+    statistics in `smem_budget(1)` bytes.  `per_sm` and `k`: another layout
+    (a sweep's).  Raises on a shape it cannot take."""
+    return _cluster_plan("fwd_plan", n, hw, c, dtype, 1, 5,
+                         smem_budget(per_sm or _FWD_PER_SM), k or _FWD_K)
+
+
+def bwd_plan(n: int, hw: int, c: int, dtype: torch.dtype) -> ClusterPlan:
+    """The cluster backward's layout: a cluster per sample, staging x and g
+    beside 4 * c floats of sums, in half an SM, so that two blocks share
+    each SM: one's loads overlap the other's sums and stores, and twice the
+    clusters run at once (30 of 8 blocks on the H100 against 15 at a
+    block's full 227 KB).  On the H100 that beat keeping twice the rows
+    resident at every training-step site, the slabs that then stream most
+    of their rows twice too.  Raises on a shape it cannot take."""
+    return _cluster_plan("bwd_plan", n, hw, c, dtype, 2, 4, smem_budget(_BWD_PER_SM))
+
+
+def _clusters(name: str, fn, device: int, args) -> int:
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(*args, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"{name} setup failed with CUDA error {err}")
+    if n.value == 0:
+        raise RuntimeError(f"{name}: no cluster of this plan fits on the card: "
+                           f"{args}")
+    return n.value
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_clusters(device: int, affine: bool, dtype: torch.dtype, relu: bool,
+                 residual: bool, c: int, plan: ClusterPlan) -> int:
+    """Set the cluster forward up for this configuration on card `device`
+    (once) and return how many of its clusters fit on the card at once;
+    raise if none does."""
+    return _clusters("norm forward", _lib().dwc_norm_fwd_clusters, device,
+                     (int(affine), _DTYPE_CODE[dtype], int(relu), int(residual), c,
+                      plan.k, plan.resident, plan.smem))
 
 
 @functools.lru_cache(maxsize=None)
 def bwd_clusters(device: int, op: int, dtype: torch.dtype, relu: bool,
-                 check: bool, c: int, plan: BwdPlan) -> int:
-    """Set the cluster backward up for this configuration on card `device`
-    (once) and return how many of its clusters fit on the card at once;
-    raise if none does."""
-    n = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = _lib().dwc_norm_bwd_clusters(op, _DTYPE_CODE[dtype], int(relu),
-                                           int(check), c, plan.k, plan.resident,
-                                           plan.smem, ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"norm backward setup failed with CUDA error {err}")
-    if n.value == 0:
-        raise RuntimeError(f"no cluster of {plan.k} blocks with {plan.smem} bytes "
-                           "of shared memory each fits on the card")
-    return n.value
+                 check: bool, c: int, plan: ClusterPlan) -> int:
+    """The same for the cluster backward (op 0 instance norm, 1 AdaIN;
+    `check`: the mask-check variant)."""
+    return _clusters("norm backward", _lib().dwc_norm_bwd_clusters, device,
+                     (op, _DTYPE_CODE[dtype], int(relu), int(check), c, plan.k,
+                      plan.resident, plan.smem))
+
+
+# ------------------------------------------------------------------ forward
+
+def _forward(name: str, fn, x: torch.Tensor, affine: bool, relu: bool,
+             residual: bool, two_pass: bool, params, plan: ClusterPlan):
+    """One launch of the cluster forward on x; `params`: the pointers
+    between x and y in `fn`'s signature.  Returns (y, stats)."""
+    n, c, h, w = x.shape
+    plan = plan or fwd_plan(n, h * w, c, x.dtype)
+    fwd_clusters(x.device.index or 0, affine, x.dtype, relu, residual, c, plan)
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    stats = _f32(n, 2, c, like=x)
+    _run(name, fn, x.device, x.data_ptr(), *params, y.data_ptr(), stats.data_ptr(),
+         n, h * w, c, _DTYPE_CODE[x.dtype], int(two_pass), int(relu), plan.k,
+         plan.resident, plan.smem)
+    return y, stats
+
+
+def instance_norm(x: torch.Tensor, relu: bool = False, two_pass: bool = True,
+                  plan: ClusterPlan = None):
+    """Per-(n, c) instance norm over H*W, no affine, optional fused ReLU.
+    Returns (y, stats).  `plan`: a layout other than `fwd_plan`'s (a
+    sweep's)."""
+    _check_activation("instance_norm", x)
+    return _forward("instance_norm", _lib().dwc_instance_norm, x, False, relu,
+                    False, two_pass, (), plan)
+
+
+def adain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+          relu: bool = False, two_pass: bool = True, plan: ClusterPlan = None):
+    """IN(x) * scale[n, c] + bias[n, c], optional fused ReLU.
+    Returns (y, stats)."""
+    _check_activation("adain", x)
+    for p in (scale, bias):
+        _check_param("adain", x, p, x.shape[:2])
+    return _forward("adain", _lib().dwc_adain, x, True, relu, False, two_pass,
+                    (scale.data_ptr(), bias.data_ptr(), None), plan)
+
+
+def adain_residual(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, two_pass: bool = True, plan: ClusterPlan = None):
+    """x + AdaIN(y): the add is fused into the kernel's store.  Returns
+    (out, stats of y)."""
+    _check_activation("adain_residual", y)
+    _check_like("adain_residual", y, x)
+    for p in (scale, bias):
+        _check_param("adain_residual", y, p, y.shape[:2])
+    return _forward("adain_residual", _lib().dwc_adain, y, True, False, True,
+                    two_pass, (scale.data_ptr(), bias.data_ptr(), x.data_ptr()), plan)
+
+
+def fwd_trace(fn, x: torch.Tensor, plan: ClusterPlan = None) -> torch.Tensor:
+    """Run `fn()` (one forward of rows 1-3 on x) with the phase trace on: the
+    card's nanosecond clock at six points of every block, int64 [n, k, 6]
+    (start; its slab summed; the block's sums formed; the statistics known;
+    its part of y stored; the end).  A diagnostic: synchronises."""
+    n, c, h, w = x.shape
+    plan = plan or fwd_plan(n, h * w, c, x.dtype)
+    buf = torch.zeros(n, plan.k, 6, dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        torch.cuda.synchronize()
+        try:
+            if _lib().dwc_norm_fwd_trace(buf.data_ptr()):
+                raise RuntimeError("fwd_trace: could not set the trace buffer")
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            _lib().dwc_norm_fwd_trace(None)
+    return buf
+
+
+def layer_norm_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   two_pass: bool = True):
+    """Reference LayerNorm: per-sample mean and unbiased std over C*H*W,
+    (x - mean) / (std + eps) * gamma[c] + beta[c].  Returns (y, stats)."""
+    name = "layer_norm_ref"
+    _check_activation(name, x)
+    for p in (gamma, beta):
+        _check_param(name, x, p, x.shape[1:2])
+    n, hw, c, splits = _geometry(x)
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    stats = _f32(n, 2, c, like=x)
+    ws = _f32(2 * n * splits * c, like=x)
+    _run(name, _lib().dwc_layer_norm_ref, x.device, x.data_ptr(), gamma.data_ptr(),
+         beta.data_ptr(), y.data_ptr(), stats.data_ptr(), ws.data_ptr(), n, hw, c,
+         splits, _DTYPE_CODE[x.dtype], int(two_pass))
+    return y, stats
+
+
+# ------------------------------------------------------------------ backward
+
+def _check_stats(name: str, x: torch.Tensor, stats: torch.Tensor) -> None:
+    _check_param(name, x, stats, (x.shape[0], 2, x.shape[1]))
 
 
 def _bwd_common(name: str, x, g, stats, op: int, relu: bool, check: bool = False):

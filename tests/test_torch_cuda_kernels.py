@@ -8,9 +8,10 @@ that machine need not have):
 fp32 within atol 1e-4 (summation order only); bf16 within 2 bf16 ulps of
 the rounded fp32 plain result plus that atol.  Shapes are small and ragged
 (rows not a multiple of a block's row chunk; channel counts 8 to 256); the
-instance-norm and AdaIN backward kernel is also held at every shape of the
-flagship training step, run twice (bit-equal), with its recomputed ReLU
-mask counted against y > 0.
+instance-norm and AdaIN kernels, forward and backward, are also held at
+every shape of the flagship serving batch and training step, run twice
+(bit-equal), one CUDA kernel a call, with the backward's recomputed ReLU
+mask counted against the forward's y > 0.
 """
 
 import pytest
@@ -58,6 +59,16 @@ def _call(table, op, args, relu, stats):
 PUBLIC = {"instance_norm": norms.instance_norm, "adain": norms.adain,
           "adain_residual": norms.adain_residual,
           "layer_norm_ref": norms.layer_norm_ref}
+# the kernels themselves, (y, stats), with `stats` as the public ops take it
+KERNEL_CALLS = {
+    "instance_norm": lambda x, relu, stats: kernels.instance_norm(
+        x, relu=relu, two_pass=stats == "2pass"),
+    "adain": lambda x, s, b, relu, stats: kernels.adain(
+        x, s, b, relu=relu, two_pass=stats == "2pass"),
+    "adain_residual": lambda x, y, s, b, stats: kernels.adain_residual(
+        x, y, s, b, two_pass=stats == "2pass"),
+    "layer_norm_ref": lambda x, g, b, stats: kernels.layer_norm_ref(
+        x, g, b, two_pass=stats == "2pass")}
 PLAIN = {"instance_norm": norms.instance_norm_plain, "adain": norms.adain_plain,
          "adain_residual": norms.adain_residual_plain,
          "layer_norm_ref": norms.layer_norm_ref_plain}
@@ -80,6 +91,13 @@ def test_kernel_matches_plain(card, op, relu, shape, dtype, stats):
     out = _call(PUBLIC, op, args, relu, stats)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[op] == before + 1
+    _assert_forward_close(op, args, out, relu, stats)
+
+
+def _assert_forward_close(op, args, out, relu, stats):
+    """A forward kernel's output against its plain version in fp32, within
+    the tolerances of the module's docstring."""
+    dtype = args[0].dtype
     assert out.dtype == dtype and out.is_contiguous(memory_format=torch.channels_last)
     args32 = tuple(a.float() for a in args)
     ref = _call(PLAIN, op, args32, relu, stats)
@@ -262,6 +280,69 @@ def test_cluster_backward_is_one_kernel_per_call(card):
     _, st = kernels.layer_norm_ref(x, gamma, beta)
     assert chip_smoke.kernels_per_call(
         lambda: kernels.layer_norm_ref_bwd(x, x, st, gamma)) == 4
+
+
+# the serving batch's shapes of rows 1-3 (chip_smoke.py's SITES), then the
+# training step's and the ragged ones of the backward
+FWD_CLUSTER_SHAPES = [(32, 64, 128, 128), (32, 128, 64, 64),
+                      (32, 256, 32, 32)] + CLUSTER_SHAPES
+
+
+@pytest.mark.parametrize("stats", ["2pass", "1pass"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op,relu", CLUSTER_OPS)
+@pytest.mark.parametrize("shape", FWD_CLUSTER_SHAPES)
+def test_cluster_forward_matches_plain(card, shape, op, relu, dtype, stats):
+    """The one-launch forward of rows 1-3 against its plain version, as
+    `test_kernel_matches_plain`; a second run bit-equal, y and the
+    statistics."""
+    args = _args(op, shape, dtype, card, 5)
+    got = _call(KERNEL_CALLS, op, args, relu, stats)
+    again = _call(KERNEL_CALLS, op, args, relu, stats)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    _assert_forward_close(op, args, got[0], relu, stats)
+
+
+def test_cluster_forward_is_one_kernel_per_call(card):
+    """One call of each forward of rows 1-3 at a serving and a training
+    shape launches exactly one CUDA kernel; the LayerNorm's forward keeps
+    its split kernels (three in 1pass, five in 2pass)."""
+    import chip_smoke
+    for shape in ((32, 64, 128, 128), (16, 256, 32, 32)):
+        for op, relu in CLUSTER_OPS:
+            for stats in ("1pass", "2pass"):
+                args = _args(op, shape, torch.bfloat16, card, 6)
+                assert chip_smoke.kernels_per_call(
+                    lambda: _call(KERNEL_CALLS, op, args, relu, stats)) == 1, (op, relu)
+    args = _args("layer_norm_ref", (2, 64, 8, 8), torch.bfloat16, card, 6)
+    for stats, count in (("1pass", 3), ("2pass", 5)):
+        assert chip_smoke.kernels_per_call(
+            lambda: _call(KERNEL_CALLS, "layer_norm_ref", args, False, stats)) == count
+
+
+def test_cluster_forward_phase_trace(card):
+    """`kernels.fwd_trace`: six readings of the card's clock per block of
+    one forward call, in order; the call's output is the untraced one's."""
+    x = _args("instance_norm", (4, 64, 16, 16), torch.bfloat16, card, 8)[0]
+    traced = []
+    t = kernels.fwd_trace(lambda: traced.extend(kernels.instance_norm(x, relu=True)), x)
+    assert t.shape == (4, kernels.fwd_plan(4, 256, 64, torch.bfloat16).k, 6)
+    assert bool((t[..., 0] > 0).all()) and bool((t[..., 1:] >= t[..., :-1]).all())
+    y, st = kernels.instance_norm(x, relu=True)
+    assert torch.equal(y, traced[0]) and torch.equal(st, traced[1])
+
+
+def test_cluster_forward_refuses_what_its_plan_cannot_take(card):
+    n, c = 70000, 8   # more samples than a grid's second dimension takes
+    x = torch.zeros(n, c, 1, 1, device=card).contiguous(memory_format=torch.channels_last)
+    s = torch.ones(n, c, device=card)
+    with pytest.raises(ValueError, match="plan"):
+        kernels.instance_norm(x)
+    with pytest.raises(ValueError, match="plan"):
+        kernels.adain(x, s, s)
+    with pytest.raises(ValueError, match="plan"):
+        kernels.adain_residual(x, x, s, s)
 
 
 def test_cluster_backward_refuses_what_its_plan_cannot_take(card):

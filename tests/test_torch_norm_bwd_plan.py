@@ -14,7 +14,8 @@ The kernel takes a fused ReLU's mask from x, not from the output: the
 forward's value before the ReLU, rounded to the activation dtype, > 0.
 `norms.relu_mask_plain` is that rule in plain form; it equals y > 0 of the
 plain forward for the instance norm and AdaIN, in both dtypes and both
-stats modes.
+stats modes, and so does the rule applied to the forward kernel's own
+order of fp32 operations (`normed`, then `affine`'s fused multiply-add).
 """
 
 import numpy as np
@@ -54,7 +55,7 @@ def test_plan_partitions_each_sample(shape, dtype):
     hw = h * w
     plan = kernels.bwd_plan(n, hw, c, dtype)
     assert 1 <= plan.k <= min(8, hw)
-    slabs = kernels.bwd_slabs(hw, plan.k)
+    slabs = kernels.cluster_slabs(hw, plan.k)
     assert len(slabs) == plan.k and slabs[0][0] == 0 and slabs[-1][1] == hw
     assert all(a < b for a, b in slabs)                     # none empty
     assert all(slabs[i][1] == slabs[i + 1][0] for i in range(plan.k - 1))
@@ -89,21 +90,52 @@ def test_plan_refuses_what_the_kernel_cannot_take(n, hw, c, dtype):
         kernels.bwd_plan(n, hw, c, dtype)
 
 
+def _kernel_order(x, scale, bias, stats):
+    """The forward kernel's value before its ReLU, in its order of fp32
+    operations: the statistics as the kernel forms them from the sums, then
+    `normed` (x - mean, rounded, times the factor, rounded) and `affine`
+    (one fused multiply-add: the exact product plus the bias, rounded once;
+    float64 holds the product exactly)."""
+    x32 = x.float()
+    hw = x.shape[2] * x.shape[3]
+    mean = x32.sum(dim=(2, 3), keepdim=True) / hw
+    if stats == "1pass":
+        var = torch.clamp(x32.square().sum(dim=(2, 3), keepdim=True) / hw
+                          - mean * mean, min=0.0)
+    else:
+        var = (x32 - mean).square().sum(dim=(2, 3), keepdim=True) / hw
+    t = (x32 - mean) * (1 / torch.sqrt(var + norms.EPS))
+    if scale is None:
+        return t
+    return (t.double() * scale.double()[:, :, None, None]
+            + bias.double()[:, :, None, None]).float()
+
+
+@pytest.mark.parametrize("order", ["plain", "kernel"])
 @pytest.mark.parametrize("stats", ["2pass", "1pass"])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("op", ["instance_norm", "adain"])
-def test_relu_mask_from_x_is_y_positive(op, dtype, stats):
+def test_relu_mask_from_x_is_y_positive(op, dtype, stats, order):
+    """The mask rule against the plain forward's y > 0 and against y > 0 of
+    the forward in the kernel's order of `normed` and `affine` (the ReLU of
+    that value, rounded to the dtype, as the kernel stores it)."""
     rng = np.random.default_rng(0)
     n, c, h, w = 3, 16, 9, 7
     x = rng.standard_normal((n, c, h, w)) * rng.uniform(0.5, 2, (n, c, 1, 1)) \
         + rng.standard_normal((n, c, 1, 1))
     x = torch.from_numpy(x.astype(np.float32)).to(dtype)
-    if op == "instance_norm":
+    scale = bias = None
+    if op == "adain":
+        scale = torch.from_numpy((1 + 0.5 * rng.standard_normal((n, c))).astype(np.float32))
+        bias = torch.from_numpy((0.3 * rng.standard_normal((n, c))).astype(np.float32))
+    if order == "kernel":
+        t = _kernel_order(x, scale, bias, stats)
+        y = torch.clamp(t, min=0.0).to(dtype)
+        mask = t.to(dtype) > 0
+    elif op == "instance_norm":
         y = norms.instance_norm_plain(x, relu=True, stats=stats)
         mask = norms.relu_mask_plain(x, stats=stats)
     else:
-        scale = torch.from_numpy((1 + 0.5 * rng.standard_normal((n, c))).astype(np.float32))
-        bias = torch.from_numpy((0.3 * rng.standard_normal((n, c))).astype(np.float32))
         y = norms.adain_plain(x, scale, bias, relu=True, stats=stats)
         mask = norms.relu_mask_plain(x, scale, bias, stats=stats)
     assert mask.dtype == torch.bool and mask.shape == x.shape
