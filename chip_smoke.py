@@ -12,11 +12,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    modes, against its plain PyTorch version on the card; kernel, plain and
    library (F.instance_norm, for IN and AdaIN) device times (20 calls in a
    CUDA graph, CUDA events, cold L2) beside the bytes bound, and the
-   kernel's eager time (wrapper included); the instance norm and AdaIN
-   (rows 1-3, one cluster kernel per call) also run twice (bit-equal, y and
-   the statistics), must be one CUDA kernel a call (the kernel nodes of a
-   CUDA graph of one call), and log their plan (blocks per sample, shared
-   memory, resident share of a slab, clusters that fit);
+   kernel's eager time (wrapper included); the reference LayerNorm has no
+   library call, and logs the nearest one, F.group_norm(x, 1, gamma, beta),
+   as `nearest_call_ms`; each (rows 1-4, one cluster kernel per call) also
+   runs twice (bit-equal, y and the statistics), must be one CUDA kernel a
+   call (the kernel nodes of a CUDA graph of one call), and logs its plan
+   (blocks per sample, shared memory, resident share of a slab, clusters
+   that fit);
 3. the slice in fp32 on the card (kernels) against the CPU (plain
    versions), flagship width, 4 images, TF32 off: max abs diff <= 2e-3;
 4. the slice at flagship width in bf16 (`configs/celeba_faces.yaml`, batch
@@ -30,17 +32,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    gradients), run twice (bit-equal), after the forward kernel at the same
    shape against its plain forward with phase 2's tolerance (and timed
    there, as phase 2 times it: rows 1-4 per training step, with phase 2's
-   checks of rows 1-3 as `fwd_*` keys); times and bound
+   checks of rows 1-4 as `fwd_*` keys); times and bound
    as in phase 2, the bound counting x and the incoming gradient read once
    and dx written once; the library time for the instance norm and AdaIN is
    the backward of `F.instance_norm` (no ReLU; AdaIN as one call on x
    viewed as [1, N*C, H, W]) through `torch.autograd.grad(...,
-   retain_graph=True)`, timed eagerly; the CUDA kernels one call launches
-   (the kernel nodes of a CUDA graph of one call: the instance-norm and
-   AdaIN backward must be one, the cluster kernel), with that kernel's plan (blocks per sample, shared
-   memory, resident share of a slab, clusters that fit) and, at a ReLU
-   site, the elements where the mask it recomputes from x differs from the
-   forward's y > 0 (must be 0);
+   retain_graph=True)`, timed eagerly, and the LayerNorm's nearest call
+   the backward of F.group_norm(x, 1, gamma, beta), the same way; the CUDA
+   kernels one call launches (the kernel nodes of a CUDA graph of one
+   call: each backward must be one, its cluster kernel), with that
+   kernel's plan (blocks per sample, shared memory, resident share of a
+   slab, clusters that fit) and, at a ReLU site, the elements where the
+   mask it recomputes from x differs from the forward's y > 0 (must be
+   0);
 6. one fp32 training step at flagship width (batch 2, VGG on, TF32 off,
    dropout off, the same weights and injected style draws) on the card
    against the CPU: every loss metric and both gradient norms within
@@ -82,16 +86,20 @@ The last lines are the `kernels` JSON (nine kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
 forward and backward; a forward kernel's times and `launches` are per
 served batch, with `launches_train` its launches per training step and
-`ms_train` / `bound_ms_train` its time and bound per step, rows 1-3 with
-`kernels_per_call` / `kernels_per_call_train`; the
-stem entries carry phase 8's HMMA counts of the kernels they run as
+`ms_train` / `bound_ms_train` its time and bound per step; the norm
+kernels (rows 1-7, each one cluster kernel per call) with `kernels_per_call`
+(rows 1-4 also `kernels_per_call_train`), `bit_equal_runs` and their
+`plans` at the flagship sites, the LayerNorm's rows with `nearest_call_ms`;
+the stem entries carry phase 8's HMMA counts of the kernels they run as
 `hmma`), the nvidia-smi line and `{"ok": true, "device": {...}}`.  Without
 a card it exits 1 and prints no result.
 
 Not run by `main`: `sweep_fwd_plans()` times rows 1-3 at every serving and
 training site under each forward layout (blocks per SM x blocks per
-sample), and `trace_fwd_sites()` shows where one call's time goes in its
-blocks (the card's clock at six points of the kernel).
+sample), `sweep_ln_plans()` rows 4 and 7 at theirs under each LayerNorm
+layout (the backward also with 12 and 16 blocks per sample, non-portable
+clusters), and `trace_fwd_sites()` shows where one call of rows 1-4 spends
+its time in its blocks (the card's clock at six points of the kernel).
 """
 
 from __future__ import annotations
@@ -242,9 +250,17 @@ def site_inputs(kernel, shape, dtype, g):
             0.1 * torch.randn(c, generator=g, device=dev))
 
 
+def cold_copies(args):
+    """`args` and clones of its activations, enough to fill COLD_L2_BYTES."""
+    in_bytes = sum(a.numel() * a.element_size() for a in args if a.dim() == 4)
+    return [args] + [tuple(a.clone(memory_format=torch.preserve_format)
+                           if a.dim() == 4 else a for a in args)
+                     for _ in range(max(0, math.ceil(COLD_L2_BYTES / in_bytes) - 1))]
+
+
 def run_kernel_stats(kernel, args, relu, stats, plan=None):
-    """The forward kernel: (output, saved statistics); `plan`: rows 1-3's
-    layout if not `kernels.fwd_plan`'s (the plan sweep)."""
+    """The forward kernel: (output, saved statistics); `plan`: its layout
+    if not `kernels.fwd_plan`'s (the plan sweeps)."""
     two_pass = stats == "2pass"
     if kernel == "instance_norm":
         return kernels.instance_norm(*args, relu=relu, two_pass=two_pass, plan=plan)
@@ -252,21 +268,22 @@ def run_kernel_stats(kernel, args, relu, stats, plan=None):
         return kernels.adain(*args, relu=relu, two_pass=two_pass, plan=plan)
     if kernel == "adain_residual":
         return kernels.adain_residual(*args, two_pass=two_pass, plan=plan)
-    return kernels.layer_norm_ref(*args, two_pass=two_pass)
+    return kernels.layer_norm_ref(*args, two_pass=two_pass, plan=plan)
 
 
 def run_kernel(kernel, args, relu, stats, plan=None):
     return run_kernel_stats(kernel, args, relu, stats, plan)[0]
 
 
-# the forwards that are one cluster kernel per call (rows 1-3): (affine,
-# residual) of `kernels.fwd_clusters`
-CLUSTER_FWD = {"instance_norm": (False, False), "adain": (True, False),
-               "adain_residual": (True, True)}
+# the forwards, each one cluster kernel per call (rows 1-4): (op, residual)
+# of `kernels.fwd_clusters`
+CLUSTER_FWD = {"instance_norm": (0, False), "adain": (1, False),
+               "adain_residual": (1, True), "layer_norm_ref": (2, False)}
+ROWS_1_3 = ("instance_norm", "adain", "adain_residual")
 
 
 def fwd_cluster_checks(kernel, args, relu, stats, label):
-    """Rows 1-3: two runs bit-equal (y and the statistics), one CUDA kernel
+    """Rows 1-4: two runs bit-equal (y and the statistics), one CUDA kernel
     per call (the kernel nodes of a CUDA graph of one call), and the plan of
     the call: blocks per sample, shared memory of a block, the resident
     share of a slab, the clusters that fit on the card at once."""
@@ -281,11 +298,10 @@ def fwd_cluster_checks(kernel, args, relu, stats, label):
     x = args[1] if kernel == "adain_residual" else args[0]
     n, c, h, w = x.shape
     plan = kernels.fwd_plan(n, h * w, c, x.dtype)
-    affine, residual = CLUSTER_FWD[kernel]
+    op, residual = CLUSTER_FWD[kernel]
     return dict(kernels_per_call=per_call, bit_equal_runs=True, k=plan.k,
                 smem=plan.smem, resident_share=plan.resident / plan.rows,
-                clusters=kernels.fwd_clusters(0, affine, x.dtype, relu, residual,
-                                              c, plan))
+                clusters=kernels.fwd_clusters(0, op, x.dtype, relu, residual, c, plan))
 
 
 def run_plain(kernel, args, relu, stats):
@@ -346,6 +362,23 @@ def library_call(kernel, args):
     return call
 
 
+def group_norm_args(x, gamma, beta):
+    """The nearest PyTorch call to the reference LayerNorm,
+    F.group_norm(x, 1, gamma, beta): the same bytes, but another function
+    (biased variance, x - mean times rsqrt(var + eps)), so no library time.
+    x is given to it in its own layout, NCHW, and gamma and beta in x's
+    dtype."""
+    return x.contiguous(), gamma.to(x.dtype), beta.to(x.dtype)
+
+
+def nearest_call(kernel, args):
+    """F.group_norm(x, 1, gamma, beta) for the LayerNorm, else None."""
+    if kernel != "layer_norm_ref":
+        return None
+    gn = [group_norm_args(*a) for a in args]
+    return lambda i: F.group_norm(gn[i % len(gn)][0], 1, *gn[i % len(gn)][1:])
+
+
 def check_forward(kernel, shape, relu, dtype, stats, args, out):
     """The forward kernel's `out` against its plain version in fp32: max abs
     err, or AssertionError outside the tolerance."""
@@ -398,10 +431,7 @@ def check_site(kernel, shape, relu, dtype, stats, g):
 
     # timing: rotate over copies of the inputs so the L2 is cold, as on the
     # path, where each norm reads a fresh conv output
-    in_bytes = sum(a.numel() * a.element_size() for a in args)
-    copies = [args] + [tuple(a.clone(memory_format=torch.preserve_format)
-                             if a.dim() == 4 else a for a in args)
-                       for _ in range(max(0, math.ceil(COLD_L2_BYTES / in_bytes) - 1))]
+    copies = cold_copies(args)
     kern = lambda i: run_kernel(kernel, copies[i % len(copies)], relu, stats)
     ms = device_ms(kern)
     eager_ms = time_ms(kern)   # as the eager path calls it, wrapper included
@@ -409,6 +439,9 @@ def check_site(kernel, shape, relu, dtype, stats, g):
                                              relu, stats))
     lib = library_call(kernel, copies)
     library_ms = device_ms(lib) if lib is not None else None
+    near = nearest_call(kernel, copies)
+    if near is not None:
+        extra["nearest_call_ms"] = device_ms(near)
     bound_ms, bound_by = site_bound(kernel, shape, dtype, stats)
     return dict(kernel=kernel, shape=list(shape), relu=relu,
                 dtype=str(dtype).replace("torch.", ""), stats=stats,
@@ -450,9 +483,10 @@ BWD_SITES = tuple(
                  ("adain_residual_bwd", "adain_residual", (b, 256, 32, 32), False, 4, 4),
                  ("layer_norm_ref_bwd", "layer_norm_ref", (b, 128, 64, 64), False, 1, 1),
                  ("layer_norm_ref_bwd", "layer_norm_ref", (b, 64, 128, 128), False, 1, 1)))
-# the backwards that are one cluster kernel per call (rows 5 and 6), by op
-# code of `kernels.bwd_clusters`
-CLUSTER_BWD = {"instance_norm_bwd": 0, "adain_bwd": 1, "adain_residual_bwd": 1}
+# the backwards, each one cluster kernel per call (rows 5-7), by op code of
+# `kernels.bwd_clusters`
+CLUSTER_BWD = {"instance_norm_bwd": 0, "adain_bwd": 1, "adain_residual_bwd": 1,
+               "layer_norm_ref_bwd": 2}
 EXPECTED_TRAIN_LAUNCHES = {
     "instance_norm": 24, "adain": 8, "adain_residual": 8, "layer_norm_ref": 4,
     "instance_norm_bwd": 23, "adain_bwd": 8, "adain_residual_bwd": 8,
@@ -477,16 +511,23 @@ STEP_RTOL = 1e-3      # fp32 training step, card vs CPU
 TIMED_STEPS = 12
 
 
-def run_bwd(counter, x, gr, st, params, relu):
+def run_bwd(counter, x, gr, st, params, relu, plan=None):
     """The backward kernel of a site (x: the normalised activation; params:
-    its affine): the gradients of its inputs."""
+    its affine): the gradients of its inputs.  `plan`: the LayerNorm's
+    layout if not `kernels.ln_bwd_plan`'s (the plan sweep)."""
     if counter == "instance_norm_bwd":
         return (kernels.instance_norm_bwd(x, gr, st, relu=relu),)
     if counter == "adain_bwd":
         return kernels.adain_bwd(x, gr, st, params[0], params[1], relu=relu)
     if counter == "adain_residual_bwd":
         return kernels.adain_bwd(x, gr, st, params[0], residual=True)
-    return kernels.layer_norm_ref_bwd(x, gr, st, params[0])
+    return kernels.layer_norm_ref_bwd(x, gr, st, params[0], plan=plan)
+
+
+def bwd_plan_of(counter, shape, dtype):
+    n, c, h, w = shape
+    plan = kernels.ln_bwd_plan if counter == "layer_norm_ref_bwd" else kernels.bwd_plan
+    return plan(n, h * w, c, dtype)
 
 
 def kernels_per_call(fn) -> int:
@@ -544,6 +585,23 @@ def bwd_bound(shape, dtype, stats):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def check_bwd_close(label, got, want, dtype):
+    """A backward kernel's gradients against the plain backward's: within
+    BWD_FP32_REL (fp32) or BWD_BF16_REL (bf16) of each gradient's largest
+    magnitude.  Returns (max abs err, max relative err)."""
+    rel = BWD_FP32_REL if dtype == torch.float32 else BWD_BF16_REL
+    max_err, max_rel = 0.0, 0.0
+    for a, b in zip(got, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: not finite")
+        scale = float(b.abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        max_err, max_rel = max(max_err, err), max(max_rel, err / max(scale, 1e-30))
+        if err > rel * scale + 1e-6:
+            raise AssertionError(f"{label}: max abs err {err:.3e} vs largest {scale:.3e}")
+    return max_err, max_rel
+
+
 def check_bwd_site(counter, fwd, shape, relu, dtype, stats, g):
     args = site_inputs(fwd, shape, dtype, g)
     # the normalised activation and the affine parameters of the site
@@ -557,10 +615,7 @@ def check_bwd_site(counter, fwd, shape, relu, dtype, stats, g):
     fwd_extra = {} if fwd not in CLUSTER_FWD else {
         f"fwd_{k}": v for k, v in fwd_cluster_checks(
             fwd, args, relu, stats, f"{fwd} {shape} {dtype} {stats} relu={relu}").items()}
-    fwd_copies = [args] + [tuple(a.clone(memory_format=torch.preserve_format)
-                                 if a.dim() == 4 else a for a in args)
-                           for _ in range(max(0, math.ceil(COLD_L2_BYTES / sum(
-                               a.numel() * a.element_size() for a in args)) - 1))]
+    fwd_copies = cold_copies(args)
     fwd_ms = device_ms(lambda i: run_kernel(fwd, fwd_copies[i % len(fwd_copies)],
                                             relu, stats))
     fwd_bound_ms = site_bound(fwd, shape, dtype, stats)[0]
@@ -575,24 +630,15 @@ def check_bwd_site(counter, fwd, shape, relu, dtype, stats, g):
         raise AssertionError(f"{label}: two runs differ")
     want = run_bwd_plain(counter, x.float(), gr.float(), out.float(), params,
                          relu, stats, x.float())
-    rel = BWD_FP32_REL if dtype == torch.float32 else BWD_BF16_REL
-    max_err, max_rel = 0.0, 0.0
-    for a, b in zip(got, want):
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"{label}: not finite")
-        scale = float(b.abs().max())
-        err = float((a.float() - b.float()).abs().max())
-        max_err, max_rel = max(max_err, err), max(max_rel, err / max(scale, 1e-30))
-        if err > rel * scale + 1e-6:
-            raise AssertionError(f"{label}: max abs err {err:.3e} vs largest {scale:.3e}")
+    max_err, max_rel = check_bwd_close(label, got, want, dtype)
     del got, again, want
     # the one-launch backward: its plan, how many clusters fit, the kernels
     # one call launches (1), and its ReLU mask against the forward's y > 0
     extra = {"kernels_per_call": kernels_per_call(
         lambda: run_bwd(counter, x, gr, st, params, relu))}
     if counter in CLUSTER_BWD:
-        n, c, h, w = shape
-        plan = kernels.bwd_plan(n, h * w, c, dtype)
+        c = shape[1]
+        plan = bwd_plan_of(counter, shape, dtype)
         extra.update(k=plan.k, smem=plan.smem, resident_share=plan.resident / plan.rows,
                      clusters=kernels.bwd_clusters(0, CLUSTER_BWD[counter], dtype,
                                                    relu, False, c, plan))
@@ -621,7 +667,18 @@ def check_bwd_site(counter, fwd, shape, relu, dtype, stats, g):
         counter, copies[i % n_copies][0], copies[i % n_copies][1],
         copies[i % n_copies][3], params, relu, stats, copies[i % n_copies][0]))
     library_ms = None
-    if counter != "layer_norm_ref_bwd":
+    if counter == "layer_norm_ref_bwd":
+        # the nearest call's backward: F.group_norm's, dx, dgamma and dbeta
+        graphs = []
+        for cx, cg, _, _ in copies:
+            xv, w, b = (t.detach().requires_grad_()
+                        for t in group_norm_args(cx, *params))
+            graphs.append((F.group_norm(xv, 1, w, b), (xv, w, b), cg.contiguous()))
+        extra["nearest_call_ms"] = time_ms(lambda i: torch.autograd.grad(
+            graphs[i % n_copies][0], graphs[i % n_copies][1],
+            graphs[i % n_copies][2], retain_graph=True))
+        del graphs
+    else:
         # the backward of F.instance_norm (the ReLU left out): dx alone for
         # the instance norm, dx, dscale and dbias for AdaIN's form of it
         graphs = []
@@ -669,17 +726,32 @@ SWEEP_PER_SM = (1, 2, 3)   # blocks per SM: a block's shared memory
 SWEEP_K = (4, 6, 7, 8)     # blocks per sample
 
 
-def fwd_sweep_sites():
-    """Rows 1-3's sites: (kernel, NCHW shape, relu, calls per served batch,
-    forward calls per training step), merged where a shape recurs."""
+def fwd_sweep_sites(names=ROWS_1_3):
+    """The sites of the forwards `names`: (kernel, NCHW shape, relu, calls
+    per served batch, forward calls per training step), merged where a
+    shape recurs."""
     sites = {}
     for kernel, shape, relu, calls in SITES:
-        if kernel in CLUSTER_FWD:
+        if kernel in names:
             sites.setdefault((kernel, shape, relu), [0, 0])[0] += calls
     for _, fwd, shape, relu, _, fwd_calls in BWD_SITES:
-        if fwd in CLUSTER_FWD:
+        if fwd in names:
             sites.setdefault((fwd, shape, relu), [0, 0])[1] += fwd_calls
     return [key + tuple(calls) for key, calls in sites.items()]
+
+
+def sweep_fwd_site(kernel, shape, relu, copies, dtype, stats, plan):
+    """One forward site under `plan`: checked against its plain version,
+    device ms as phase 2 (a CUDA graph, cold L2), the plan's resident
+    share and shared memory, and the clusters that fit."""
+    out = run_kernel(kernel, copies[0], relu, stats, plan)
+    torch.cuda.synchronize()
+    err = check_forward(kernel, shape, relu, dtype, stats, copies[0], out)
+    ms = device_ms(lambda i: run_kernel(kernel, copies[i % len(copies)], relu, stats, plan))
+    op, residual = CLUSTER_FWD[kernel]
+    return dict(kernel=kernel, shape=list(shape), relu=relu, ms=ms, max_abs_err=err,
+                k=plan.k, resident_share=plan.resident / plan.rows, smem=plan.smem,
+                clusters=kernels.fwd_clusters(0, op, dtype, relu, residual, shape[1], plan))
 
 
 def sweep_fwd_plans(dtype=torch.bfloat16, stats="1pass"):
@@ -695,13 +767,8 @@ def sweep_fwd_plans(dtype=torch.bfloat16, stats="1pass"):
     """
     g = torch.Generator(device="cuda").manual_seed(SEED + 21)
     sites = fwd_sweep_sites()
-    inputs = []
-    for kernel, shape, relu, _, _ in sites:
-        args = site_inputs(kernel, shape, dtype, g)
-        in_bytes = sum(a.numel() * a.element_size() for a in args)
-        inputs.append([args] + [tuple(a.clone(memory_format=torch.preserve_format)
-                                      if a.dim() == 4 else a for a in args)
-                                for _ in range(max(0, math.ceil(COLD_L2_BYTES / in_bytes) - 1))])
+    inputs = [cold_copies(site_inputs(kernel, shape, dtype, g))
+              for kernel, shape, relu, _, _ in sites]
     copy_ms = [device_ms(lambda i: copies[i % len(copies)][0].clone(
         memory_format=torch.preserve_format)) for copies in inputs]
     log("fwd_sweep_copy " + json.dumps([dict(shape=list(site[1]), copy_ms=ms)
@@ -713,27 +780,18 @@ def sweep_fwd_plans(dtype=torch.bfloat16, stats="1pass"):
             for (kernel, shape, relu, per_batch, per_step), copies in zip(sites, inputs):
                 n, c, h, w = shape
                 plan = kernels.fwd_plan(n, h * w, c, dtype, per_sm=per_sm, k=k)
-                out = run_kernel(kernel, copies[0], relu, stats, plan)
-                torch.cuda.synchronize()
-                err = check_forward(kernel, shape, relu, dtype, stats, copies[0], out)
-                ms = device_ms(lambda i: run_kernel(kernel, copies[i % len(copies)],
-                                                    relu, stats, plan))
-                affine, residual = CLUSTER_FWD[kernel]
-                row["sites"].append(dict(
-                    kernel=kernel, shape=list(shape), relu=relu, ms=ms, max_abs_err=err,
-                    resident_share=plan.resident / plan.rows, smem=plan.smem,
-                    clusters=kernels.fwd_clusters(0, affine, dtype, relu, residual, c,
-                                                  plan),
-                    calls_per_batch=per_batch, calls_per_step=per_step))
-                row["ms_batch"] += ms * per_batch
-                row["ms_step"] += ms * per_step
+                site = sweep_fwd_site(kernel, shape, relu, copies, dtype, stats, plan)
+                row["sites"].append(dict(site, calls_per_batch=per_batch,
+                                         calls_per_step=per_step))
+                row["ms_batch"] += site["ms"] * per_batch
+                row["ms_step"] += site["ms"] * per_step
             log("fwd_sweep " + json.dumps(row))
             results.append(row)
     return results
 
 
 def trace_fwd_sites(dtype=torch.bfloat16, stats="1pass"):
-    """Where a forward call of rows 1-3 spends its time, at each serving and
+    """Where a forward call of rows 1-4 spends its time, at each serving and
     training site with its default plan: `kernels.fwd_trace` on a cold
     copy, after a warm-up; per phase the median over the blocks of its
     duration (µs), the spread of the blocks' start times, and the span from
@@ -744,7 +802,7 @@ def trace_fwd_sites(dtype=torch.bfloat16, stats="1pass"):
     g = torch.Generator(device="cuda").manual_seed(SEED + 23)
     phases = ("sums", "block_sums", "exchange", "apply", "exit")
     rows = []
-    for kernel, shape, relu, _, _ in fwd_sweep_sites():
+    for kernel, shape, relu, _, _ in fwd_sweep_sites(tuple(CLUSTER_FWD)):
         warm, cold = site_inputs(kernel, shape, dtype, g), site_inputs(kernel, shape, dtype, g)
         run_kernel(kernel, warm, relu, stats)
         x = cold[1] if kernel == "adain_residual" else cold[0]
@@ -758,6 +816,132 @@ def trace_fwd_sites(dtype=torch.bfloat16, stats="1pass"):
         log("fwd_trace " + json.dumps(row))
         rows.append(row)
     return rows
+
+
+# ---------------------------------------------- the LayerNorm's plan sweep
+
+LN_SWEEP_PER_SM = (1, 2)        # blocks per SM: a block's shared memory
+LN_SWEEP_K = (4, 6, 8)          # blocks per sample, forward
+LN_BWD_SWEEP_K = (4, 6, 8, 12, 16)   # and backward (12, 16: non-portable)
+
+
+def sweep_ln_plans(dtype=torch.bfloat16, stats="1pass"):
+    """Rows 4 and 7 (the LayerNorm forward and backward) at their serving
+    and training sites under each plan (blocks per SM x blocks per sample),
+    each checked against its plain version: device ms per site (as phases 2
+    and 5: a CUDA graph, cold L2), and per plan the forward's sums per
+    served batch and per training step, the backward's per step.  A plan
+    of which no cluster fits on the card is logged with its error and no
+    time.  Prints one JSON line per plan and returns them.
+
+        python -c "import chip_smoke as c; c.sweep_ln_plans()"
+    """
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    sites = fwd_sweep_sites(("layer_norm_ref",))
+    inputs = [cold_copies(site_inputs(kernel, shape, dtype, g))
+              for kernel, shape, relu, _, _ in sites]
+    results = []
+    for per_sm in LN_SWEEP_PER_SM:
+        for k in LN_SWEEP_K:
+            row = dict(row=4, per_sm=per_sm, k=k, sites=[], ms_batch=0.0, ms_step=0.0)
+            for (kernel, shape, relu, per_batch, per_step), copies in zip(sites, inputs):
+                n, c, h, w = shape
+                plan = kernels.fwd_plan(n, h * w, c, dtype, per_sm=per_sm, k=k)
+                site = sweep_fwd_site(kernel, shape, relu, copies, dtype, stats, plan)
+                row["sites"].append(dict(site, calls_per_batch=per_batch,
+                                         calls_per_step=per_step))
+                row["ms_batch"] += site["ms"] * per_batch
+                row["ms_step"] += site["ms"] * per_step
+            log("ln_sweep " + json.dumps(row))
+            results.append(row)
+    del inputs
+
+    counter = "layer_norm_ref_bwd"
+    bsites = []
+    for name, _, shape, _, calls, _ in BWD_SITES:
+        if name != counter:
+            continue
+        x, gamma, beta = site_inputs("layer_norm_ref", shape, dtype, g)
+        out, st = kernels.layer_norm_ref(x, gamma, beta, two_pass=stats == "2pass")
+        gr = torch.randn(shape, generator=g, device="cuda").to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        want = run_bwd_plain(counter, x.float(), gr.float(), out.float(), (gamma, beta),
+                             False, stats)
+        bsites.append((shape, calls, cold_copies((x, gr, st, gamma)), want))
+    for per_sm in LN_SWEEP_PER_SM:
+        for k in LN_BWD_SWEEP_K:
+            row = dict(row=7, per_sm=per_sm, k=k, sites=[], ms_step=0.0)
+            for shape, calls, copies, want in bsites:
+                n, c, h, w = shape
+                plan = kernels.ln_bwd_plan(n, h * w, c, dtype, per_sm=per_sm, k=k)
+                site = dict(shape=list(shape), k=plan.k, smem=plan.smem,
+                            resident_share=plan.resident / plan.rows, calls_per_step=calls)
+                try:
+                    site["clusters"] = kernels.bwd_clusters(0, CLUSTER_BWD[counter], dtype,
+                                                            False, False, c, plan)
+                except RuntimeError as e:   # no cluster of this plan fits
+                    row["sites"].append(dict(site, error=str(e)))
+                    row["ms_step"] = None
+                    continue
+                x, gr, st, gamma = copies[0]
+                got = run_bwd(counter, x, gr, st, (gamma,), False, plan)
+                torch.cuda.synchronize()
+                site["max_abs_err"], site["max_rel_err"] = check_bwd_close(
+                    f"{counter} {shape} {plan}", got, want, dtype)
+                site["ms"] = device_ms(lambda i: run_bwd(
+                    counter, *copies[i % len(copies)][:3], (gamma,), False, plan))
+                row["sites"].append(site)
+                if row["ms_step"] is not None:
+                    row["ms_step"] += site["ms"] * calls
+            log("ln_bwd_sweep " + json.dumps(row))
+            results.append(row)
+    return results
+
+
+# ------------------------------------------ parent-vs-change comparisons
+
+NORM_ROWS = {1: ("instance_norm",), 2: ("adain",), 3: ("adain_residual",),
+             4: ("layer_norm_ref",), 5: ("instance_norm_bwd",),
+             6: ("adain_bwd", "adain_residual_bwd"), 7: ("layer_norm_ref_bwd",)}
+
+
+def norm_row_times(log_path, dtype="bfloat16", stats="1pass"):
+    """Rows 1-7 from the `kernel_check` and `bwd_check` lines that
+    `phase_kernels()` and `phase_backward()` printed into `log_path` (any
+    tree's, so a parent's too): per row the device ms per served batch
+    (rows 1-4) and per training step, with the bound, the plain version's
+    and the nearest call's time, summed over the sites times their calls.
+    Prints and returns one JSON object.
+
+        python -c "import chip_smoke as c; c.norm_row_times('out.txt')"
+    """
+    fwd, bwd = [], []
+    for line in Path(log_path).read_text().splitlines():
+        tag, _, body = line.partition(" ")
+        if tag in ("kernel_check", "bwd_check"):
+            r = json.loads(body)
+            if r["dtype"] == dtype and r["stats"] == stats:
+                (fwd if tag == "kernel_check" else bwd).append(r)
+    out = {}
+    for row, names in NORM_ROWS.items():
+        t = {}
+        if row <= 4:
+            mine = [r for r in fwd if r["kernel"] in names]
+            for key in ("ms", "bound_ms", "plain_ms", "nearest_call_ms"):
+                if mine and key in mine[0]:
+                    t[f"{key}_batch"] = sum(r[key] * r["calls_per_batch"] for r in mine)
+            step = [r for r in bwd if r["fwd"] in names]
+            t["ms_step"] = sum(r["fwd_ms"] * r["fwd_calls_per_step"] for r in step)
+            t["bound_ms_step"] = sum(r["fwd_bound_ms"] * r["fwd_calls_per_step"]
+                                     for r in step)
+        else:
+            mine = [r for r in bwd if r["kernel"] in names]
+            for key in ("ms", "bound_ms", "plain_ms", "nearest_call_ms"):
+                if mine and key in mine[0]:
+                    t[f"{key}_step"] = sum(r[key] * r["calls_per_step"] for r in mine)
+        out[f"row{row}"] = t
+    log("norm_row_times " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1279,6 +1463,14 @@ def main() -> int:
                 and r["stats"] == cfg.norm_stats and r[per_key]]
         tot = lambda key: sum(r[key] * r[per_key] for r in flag)
         lib = None if flag[0]["library_ms"] is None else tot("library_ms")
+        if "k" in flag[0]:
+            # a cluster kernel's checks and plan at each flagship site
+            extra = dict(extra, bit_equal_runs=all(r["bit_equal_runs"] for r in mine),
+                         plans=[{key: r[key] for key in ("shape", "k", "smem",
+                                                         "resident_share", "clusters")}
+                                for r in flag])
+        if "nearest_call_ms" in flag[0]:
+            extra = dict(extra, nearest_call_ms=tot("nearest_call_ms"))
         return dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,
             launches=launches,
@@ -1304,7 +1496,7 @@ def main() -> int:
                  "bound_ms_train": sum(r["fwd_bound_ms"] * r["fwd_calls_per_step"]
                                        for r in train)}
         if name in CLUSTER_FWD:
-            # rows 1-3: CUDA kernels per call, at the serving and training sites
+            # rows 1-4: CUDA kernels per call, at the serving and training sites
             extra["kernels_per_call"] = max(r["kernels_per_call"] for r in mine)
             extra["kernels_per_call_train"] = max(
                 r["fwd_kernels_per_call"] for r in bwd_rows if r["fwd"] == name)

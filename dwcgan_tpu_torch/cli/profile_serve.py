@@ -50,10 +50,8 @@ from dwcgan_tpu_torch.train.sampler import make_infer_fn
 GROUPS = (
     ("stem kernels (this port)", ("stem_",)),
     ("norm backward kernels (this port)", ("norm_bwd_cluster_kernel",
-                                           "ln_bwd_",
-                                           "ln_param_grads_kernel")),
-    ("norm kernels (this port)", ("norm_fwd_cluster_kernel", "ln_moments_kernel",
-                                  "ln_finalize_kernel", "ln_apply_kernel")),
+                                           "ln_bwd_cluster_kernel")),
+    ("norm kernels (this port)", ("norm_fwd_cluster_kernel", "ln_fwd_cluster_kernel")),
     ("lstm", ("lstm", "rnn", "persist")),
     ("convolution", ("conv", "xmma", "implicit", "nchw", "nhwc", "winograd",
                      "fft")),

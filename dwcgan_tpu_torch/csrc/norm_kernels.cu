@@ -21,8 +21,9 @@
 // Design.  The TPU kernel held one sample in VMEM and read it once.  A
 // sample here is up to 2 MB, far beyond a block's 227 KB of shared memory,
 // and one block per sample would leave 100 of the 132 SMs idle at batch 32.
-// So the instance norm and AdaIN, forward and backward, are one launch per
-// call each: a thread-block cluster of k <= 8 blocks per sample.
+// So every kernel here, forward and backward, is one launch per call: a
+// thread-block cluster of k <= 8 blocks per sample (the LayerNorm's
+// backward up to 16, Hopper's non-portable cluster size).
 //   - block `rank` owns rows [rank * hw / k, (rank + 1) * hw / k) of its
 //     sample, an NHWC slab that is one contiguous byte range; it copies as
 //     much of the slab (x; the backward x and g) as its plan gives it into
@@ -54,26 +55,32 @@
 // (x - mean) * factor, the sums of g' and g' * xh over H*W per (n, c), then
 //   IN     dx = f * (g' - mean g' - xh * mean(g' xh)),
 //   AdaIN  the same times scale[n, c]; dbias = sum g', dscale = sum g' xh.
-// Bound: x and g read once, dx written once (3 tensors).  The ReLU mask is
-// recomputed from x and the statistics: rounded<T>(t) > 0 with t the
-// forward's own fp32 expression (normed / affine below, called by both
-// kernels), which is y > 0 exactly; y is not read.
+// Bound: x and g read once, dx written once (3 tensors).  The loads and
+// stores take the forward's L2 policies (the streamed rows evict_last for
+// the sums and read again last-read-first; the bulk copies and dx
+// evict_first).  The ReLU mask is recomputed from x and the statistics:
+// rounded<T>(t) > 0 with t the forward's own fp32 expression (normed /
+// affine below, called by both kernels), which is y > 0 exactly; y is not
+// read.
 // Statistics and arithmetic are fp32 for fp32 and bf16 data alike; eps is
 // 1e-5.
 //
 // The reference LayerNorm (per-sample statistics over all of H*W*C,
-// unbiased std, divided as std + eps) keeps a (row chunk, sample) split:
-// forward 1. moments per block into a small fp32 workspace [n][splits][c];
-// 2. finalize, one block per sample ("2pass" runs 1-2 twice, centred the
-// second time); 3. apply, normalise and the per-channel affine.  Backward
-//   1. sums of g and g * xh per channel per block; 2. finalize, one block
-//   per sample: the per-channel totals and the per-sample scalars
-//   A = sum_c gamma_c sum g, B = sum_c gamma_c sum g * xh; 3. apply:
+// unbiased std, divided as std + eps, then a per-channel affine) runs the
+// same clusters (ln_fwd_cluster_kernel, ln_bwd_cluster_kernel, sharing the
+// bodies above): after the per-channel exchange every block sums the c
+// channel totals in one fixed order (channel_totals), so all hold the same
+// per-sample values.  Forward: mean = sum x / m, m = H*W*C; "1pass" var =
+// max(sum x^2 - m mean^2, 0) / (m - 1), "2pass" a centred second pass and
+// exchange; factor = 1 / (std + eps); y = (x - mean) factor gamma_c + beta_c.
+// Backward: the per-channel sums of g and g * xh as above, then
+//   A = sum_c gamma_c sum g, B = sum_c gamma_c sum g * xh,
 //   dx = (gamma_c g - A / m) * f - (x - mean) * B / ((m-1) s d), with
-//   d = 1/f = std + eps, s = std, m = H*W*C (the Pallas rule's dx = du -
-//   mean(du) with sum (x - mean) taken as 0); 4. dgamma[c] = sum_n sum g *
-//   xh, dbeta[c] = sum_n sum g, a small pass over the per-sample sums, so no
-//   atomics and the sums do not depend on the order blocks run in.
+//   d = 1/f = std + eps, s = std (the Pallas rule's dx = du - mean(du) with
+//   sum (x - mean) taken as 0); dgamma[c] = sum_n sum g * xh and dbeta[c] =
+//   sum_n sum g, which the last cluster to finish sums over the per-sample
+//   rows of a small workspace, in sample order: no float atomics, and the
+//   sums do not depend on the order clusters run in.
 // Threads load 16 bytes at a time along the channels; a block walks its
 // rows with consecutive threads on consecutive addresses.
 // Both stats modes share the backwards: the 1pass variance is the same
@@ -133,10 +140,6 @@ template <> __device__ __forceinline__ uint4 pack16<__nv_bfloat16>(const float* 
   return a;
 }
 
-template <typename T> __device__ __forceinline__ void store16(T* p, const float* v) {
-  *reinterpret_cast<uint4*>(p) = pack16<T>(v);
-}
-
 // v as a tensor of T holds it: rounded to bf16 and back, or fp32 as it is
 template <typename T> __device__ __forceinline__ float rounded(float v) { return v; }
 template <> __device__ __forceinline__ float rounded<__nv_bfloat16>(float v) {
@@ -155,190 +158,6 @@ __device__ __forceinline__ float affine(float t, float sc, float bi) {
   return __fmaf_rn(t, sc, bi);
 }
 
-// ------------------------------------------------- the reference LayerNorm
-
-// activation [n, hw, c] (NHWC), cut into `splits` chunks of `rows` rows
-struct Geom {
-  int n, hw, c, splits, rows;
-};
-
-// workspace layout: part_sum [n][splits][c], part_sq [n][splits][c]; the
-// statistics stats [n][2][c] (mean, then the factor that multiplies
-// x - mean, each a per-sample value at channel 0) are a tensor of their
-// own, kept for the backward
-struct Work {
-  float* part_sum;
-  float* part_sq;
-  float* stats;
-};
-
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // scratch may still be read from a previous call
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float t = 0.f;
-  for (int i = 0; i < kThreads / 32; ++i) t += scratch[i];
-  return t;
-}
-
-// Sum the per-lane partials of a block (red_*[lane][c]) over its lanes and
-// store them as this block's row of the [n][splits][c] partial sums.
-__device__ __forceinline__ void store_partials(const float* red_a, const float* red_b,
-                                               float* out_a, float* out_b, int lanes,
-                                               const Geom& g, int n, int s) {
-  for (int c = threadIdx.x; c < g.c; c += kThreads) {
-    float sa = 0.f, sb = 0.f;
-    for (int l = 0; l < lanes; ++l) {
-      sa += red_a[l * g.c + c];
-      sb += red_b[l * g.c + c];
-    }
-    const size_t o = ((size_t)n * g.splits + s) * g.c + c;
-    if (out_a) out_a[o] = sa;
-    if (out_b) out_b[o] = sb;
-  }
-}
-
-// Pass 1.  kCentred == false: sums of x (and of x^2 when kSquares) per
-// channel over this block's rows.  kCentred == true: sums of (x - mean)^2,
-// the sample's mean read from stats.
-template <typename T, bool kCentred, bool kSquares>
-__global__ void __launch_bounds__(kThreads)
-ln_moments_kernel(const T* __restrict__ x, Work w, Geom g) {
-  constexpr int V = Vec<T>::kWidth;
-  __shared__ float red_a[kThreads * V];
-  __shared__ float red_b[kThreads * V];
-  const int s = blockIdx.x, n = blockIdx.y;
-  const int groups = g.c / V, lanes = kThreads / groups;
-  const int grp = threadIdx.x % groups, lane = threadIdx.x / groups;
-  const int c0 = grp * V;
-  const float mean = kCentred ? w.stats[(size_t)n * 2 * g.c] : 0.f;
-  float a[V], b[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    a[i] = 0.f;
-    b[i] = 0.f;
-  }
-  if (lane < lanes) {
-    const T* xs = x + (size_t)n * g.hw * g.c + c0;
-    const int r_end = min(g.hw, (s + 1) * g.rows);
-    for (int r = s * g.rows + lane; r < r_end; r += lanes) {
-      float v[V];
-      load16(xs + (size_t)r * g.c, v);
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        if (kCentred) {
-          const float d = v[i] - mean;
-          b[i] += d * d;
-        } else {
-          a[i] += v[i];
-          if (kSquares) b[i] += v[i] * v[i];
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      red_a[lane * g.c + c0 + i] = a[i];
-      red_b[lane * g.c + c0 + i] = b[i];
-    }
-  }
-  __syncthreads();
-  store_partials(red_a, red_b, kCentred ? nullptr : w.part_sum,
-                 (kCentred || kSquares) ? w.part_sq : nullptr, lanes, g, n, s);
-}
-
-// Pass 2, one block per sample: the statistics over m = hw*c from the
-// partial sums: unbiased var, centred (kTwoPass) or max(sum x^2 - m mean^2,
-// 0) / (m - 1), factor = 1/(std + eps).  kMeanOnly writes the mean alone,
-// for the centred pass of "2pass".
-template <bool kTwoPass, bool kMeanOnly>
-__global__ void __launch_bounds__(kThreads) ln_finalize_kernel(Work w, Geom g) {
-  __shared__ float scratch[kThreads / 32];
-  const int n = blockIdx.x;
-  const float* ps = w.part_sum + (size_t)n * g.splits * g.c;
-  const float* pq = w.part_sq + (size_t)n * g.splits * g.c;
-  float* st = w.stats + (size_t)n * 2 * g.c;
-  float sa = 0.f, sb = 0.f;
-  for (int i = threadIdx.x; i < g.splits * g.c; i += kThreads) {
-    sa += ps[i];
-    if (!kMeanOnly) sb += pq[i];
-  }
-  sa = block_sum(sa, scratch);
-  if (!kMeanOnly) sb = block_sum(sb, scratch);
-  if (threadIdx.x == 0) {
-    const float m = (float)g.hw * (float)g.c;
-    const float mean = sa / m;
-    st[0] = mean;
-    if (!kMeanOnly) {
-      const float dof = fmaxf(m - 1.f, 1.f);
-      const float var = kTwoPass ? sb / dof : fmaxf(sb - m * mean * mean, 0.f) / dof;
-      st[g.c] = 1.f / (sqrtf(var) + kEps);
-    }
-  }
-}
-
-// Pass 3: y = (x - mean) * factor * gamma[c] + beta[c]; one read, one write.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ln_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                const float* __restrict__ beta, T* __restrict__ y, Work w, Geom g) {
-  constexpr int V = Vec<T>::kWidth;
-  const int s = blockIdx.x, n = blockIdx.y;
-  const int groups = g.c / V, lanes = kThreads / groups;
-  const int grp = threadIdx.x % groups, lane = threadIdx.x / groups;
-  if (lane >= lanes) return;
-  const int c0 = grp * V;
-  const float* st = w.stats + (size_t)n * 2 * g.c;
-  const float mean = st[0], f = st[g.c];
-  float sc[V], bi[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    sc[i] = gamma[c0 + i];
-    bi[i] = beta[c0 + i];
-  }
-  const size_t base = (size_t)n * g.hw * g.c + c0;
-  const int r_end = min(g.hw, (s + 1) * g.rows);
-  for (int r = s * g.rows + lane; r < r_end; r += lanes) {
-    const size_t off = base + (size_t)r * g.c;
-    float v[V], o[V];
-    load16(x + off, v);
-#pragma unroll
-    for (int i = 0; i < V; ++i) o[i] = affine(normed(v[i], mean, f), sc[i], bi[i]);
-    store16(y + off, o);
-  }
-}
-
-template <typename T>
-int launch_ln(const void* x, const float* gamma, const float* beta, void* y, float* stats,
-              float* ws, Geom g, bool two_pass, cudaStream_t stream) {
-  const size_t part = (size_t)g.n * g.splits * g.c;
-  const Work w{ws, ws + part, stats};
-  const T* xt = static_cast<const T*>(x);
-  const dim3 grid(g.splits, g.n);
-  if (two_pass) {
-    ln_moments_kernel<T, false, false><<<grid, kThreads, 0, stream>>>(xt, w, g);
-    ln_finalize_kernel<true, true><<<g.n, kThreads, 0, stream>>>(w, g);
-    ln_moments_kernel<T, true, false><<<grid, kThreads, 0, stream>>>(xt, w, g);
-    ln_finalize_kernel<true, false><<<g.n, kThreads, 0, stream>>>(w, g);
-  } else {
-    ln_moments_kernel<T, false, true><<<grid, kThreads, 0, stream>>>(xt, w, g);
-    ln_finalize_kernel<false, false><<<g.n, kThreads, 0, stream>>>(w, g);
-  }
-  ln_apply_kernel<T><<<grid, kThreads, 0, stream>>>(xt, gamma, beta, static_cast<T*>(y), w, g);
-  return (int)cudaGetLastError();
-}
-
-// 0 when the shape suits the kernels: whole 16-byte vectors along the
-// channels and no more channel groups than threads in a block
-int check(int n, int hw, int c, int splits, int width, Geom* g) {
-  if (n < 1 || hw < 1 || c < width || c % width != 0 || c / width > kThreads ||
-      splits < 1 || splits > hw)
-    return (int)cudaErrorInvalidValue;
-  *g = Geom{n, hw, c, splits, (hw + splits - 1) / splits};
-  return 0;
-}
 
 // ------------------------------------------ clusters: the common machinery
 
@@ -352,6 +171,7 @@ int check(int n, int hw, int c, int splits, int width, Geom* g) {
 constexpr int kChunks = 4;
 constexpr int kUnroll = 4;       // streamed rows in flight per thread
 constexpr int kMaxCluster = 8;   // the portable cluster size
+constexpr int kMaxLnCluster = 16;  // the LayerNorm's backward: Hopper's non-portable size
 constexpr int kPrefetch = 32768;  // bytes of one L2 prefetch
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -420,11 +240,11 @@ __device__ __forceinline__ float ld_cluster(uint32_t addr) {
   return v;
 }
 
-// L2 policies of the forward's global accesses.  A streamed row is read
-// for the sums with evict_last, so that it is still in L2 when the apply
-// reads it again; what is read or written once (the bulk copies, the second
-// read, the residual, y) goes with evict_first, so that it does not push
-// the streamed rows out.
+// L2 policies of the cluster kernels' global accesses.  A streamed row is
+// read for the sums with evict_last, so that it is still in L2 when the
+// apply (the backward: dx) reads it again; what is read or written once
+// (the bulk copies, the second read, the residual, y or dx) goes with
+// evict_first, so that it does not push the streamed rows out.
 __device__ __forceinline__ uint64_t policy_keep() {
   uint64_t p;
   asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
@@ -530,14 +350,15 @@ __device__ __forceinline__ void block_sums(float* red, float* out, const float* 
 }
 
 // The cluster's totals of kM floats, `local[m * stride]` of each of the k
-// blocks' shared memory (read after a cluster barrier), all requested at
-// once, then summed in rank order: every block gets the same fp32 values.
-template <int kM>
+// (at most kMax) blocks' shared memory (read after a cluster barrier), all
+// requested at once, then summed in rank order: every block gets the same
+// fp32 values.
+template <int kM, int kMax = kMaxCluster>
 __device__ __forceinline__ void cluster_sums(const float* local, int stride, int k,
                                              float (&s)[kM]) {
-  float p[kMaxCluster][kM];
+  float p[kMax][kM];
 #pragma unroll
-  for (int q = 0; q < kMaxCluster; ++q) {
+  for (int q = 0; q < kMax; ++q) {
     if (q < k) {
       const uint32_t remote = cluster_addr(smem_addr(local), q);
 #pragma unroll
@@ -548,7 +369,7 @@ __device__ __forceinline__ void cluster_sums(const float* local, int stride, int
 #pragma unroll
   for (int m = 0; m < kM; ++m) s[m] = 0.f;
 #pragma unroll
-  for (int q = 0; q < kMaxCluster; ++q) {
+  for (int q = 0; q < kMax; ++q) {
     if (q < k) {
 #pragma unroll
       for (int m = 0; m < kM; ++m) s[m] += p[q][m];
@@ -556,10 +377,34 @@ __device__ __forceinline__ void cluster_sums(const float* local, int stride, int
   }
 }
 
+// The LayerNorm's per-sample sums over the c channels of the cluster's
+// per-channel totals tot[m * c + ch] (weighted by w[ch] where w is given),
+// in one fixed order: each lane of every warp sums the channels lane,
+// lane + 32, ..., then a butterfly over the warp.  Each pair of lanes adds
+// the same two values, so every thread of every block of the cluster gets
+// the same fp32 values, with no further barrier.  Every thread calls it,
+// after the barrier that completes tot.
+template <int kM>
+__device__ __forceinline__ void channel_totals(const float* tot, const float* w, int c,
+                                               float (&s)[kM]) {
+#pragma unroll
+  for (int m = 0; m < kM; ++m) s[m] = 0.f;
+  for (int ch = threadIdx.x % 32; ch < c; ch += 32) {
+    const float wc = w ? w[ch] : 1.f;
+#pragma unroll
+    for (int m = 0; m < kM; ++m) s[m] += wc * tot[m * c + ch];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int m = 0; m < kM; ++m) s[m] += __shfl_xor_sync(0xffffffffu, s[m], o);
+  }
+}
+
 // Launch `kern` as n clusters of k blocks with `smem` bytes of dynamic
 // shared memory each, or (clusters != NULL) set it up: opt in to the
-// largest shared memory, and ask how many clusters of this configuration
-// fit on the card at once.
+// largest shared memory (and, for k > 8, to a non-portable cluster size),
+// and ask how many clusters of this configuration fit on the card at once.
 template <typename... Params, typename... Args>
 int cluster_launch(void (*kern)(Params...), int k, int n, int smem, cudaStream_t stream,
                    int* clusters, Args... args) {
@@ -581,6 +426,9 @@ int cluster_launch(void (*kern)(Params...), int k, int n, int smem, cudaStream_t
     if (!e) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (!e) e = cudaFuncSetAttribute((const void*)kern,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (!e && k > kMaxCluster)
+      e = cudaFuncSetAttribute((const void*)kern,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (!e) e = cudaOccupancyMaxActiveClusters(clusters, (const void*)kern, &cfg);
     return (int)e;
   }
@@ -589,12 +437,12 @@ int cluster_launch(void (*kern)(Params...), int k, int n, int smem, cudaStream_t
 
 // 0 when a cluster call suits the kernels: at most 65535 samples (the
 // grid's second dimension), whole 16-byte vectors along the channels, no
-// more channel groups than threads, 1..8 blocks a cluster, and `smem`
+// more channel groups than threads, 1..max_k blocks a cluster, and `smem`
 // bytes enough for `need`
 inline int check_cluster(int n, int hw, int c, int width, int k, int resident, int smem,
-                         size_t need) {
+                         size_t need, int max_k = kMaxCluster) {
   if (n < 1 || n > 65535 || hw < 1 || c < width || c % width || c / width > kThreads ||
-      k < 1 || k > kMaxCluster || resident < 0 || (size_t)smem < need)
+      k < 1 || k > max_k || resident < 0 || (size_t)smem < need)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -736,14 +584,16 @@ __device__ __forceinline__ void stamp(unsigned long long* trace, int i) {
   }
 }
 
-// y (and the statistics, written by rank 0) in one launch.  scale, bias:
-// AdaIN's fp32 [n, c]; residual: the residual form's x, else NULL.
-template <typename T, bool kAffine, bool kRelu, bool kResidual>
-__global__ void __launch_bounds__(kThreads)
-norm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                        const float* __restrict__ bias, const T* __restrict__ residual,
-                        T* __restrict__ y, float* __restrict__ stats, int hw, int c,
-                        int resident, int two_pass) {
+// y (and the statistics, written by rank 0) in one launch: the body of both
+// forward kernels.  scale, bias: AdaIN's fp32 [n, c], or (kLayer) the
+// LayerNorm's gamma and beta, fp32 [c]; residual: the residual form's x,
+// else NULL.
+template <typename T, bool kAffine, bool kRelu, bool kResidual, bool kLayer>
+__device__ __forceinline__ void norm_fwd(const T* __restrict__ x, const float* __restrict__ scale,
+                                         const float* __restrict__ bias,
+                                         const T* __restrict__ residual, T* __restrict__ y,
+                                         float* __restrict__ stats, int hw, int c, int resident,
+                                         int two_pass) {
   constexpr int V = Vec<T>::kWidth;
   extern __shared__ __align__(16) unsigned char smem[];
   const int k = gridDim.x, rank = blockIdx.x, n = blockIdx.y;
@@ -804,15 +654,25 @@ norm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ scale
   block_sums<V>(red, part, t.a, t.b, active, lane, lanes, c0, c);
   stamp(trace, 2);
 
-  // 3. the cluster's totals, the same in every block: mean = sum / hw, and
-  //    "1pass" var = max(E[x^2] - mean^2, 0), factor = 1 / sqrt(var + eps)
+  // 3. the cluster's totals, the same in every block.  Per channel: mean =
+  //    sum / hw, and "1pass" var = max(E[x^2] - mean^2, 0), factor = 1 /
+  //    sqrt(var + eps).  The LayerNorm's per sample, over m = hw * c (as
+  //    the split kernels formed them): mean = sum / m, "1pass" var =
+  //    max(sum x^2 - m mean^2, 0) / (m - 1), factor = 1 / (std + eps).
   const float hwf = (float)hw;
+  const float m = hwf * (float)c, dof = fmaxf(m - 1.f, 1.f);
   float* st = stats + (size_t)n * 2 * c;
+  float ln_mean = 0.f, ln_fac = 0.f;   // the LayerNorm's statistics
   cluster_arrive();   // release: this block's part is written
   cluster_wait();     // acquire: so is every other block's
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
     float s[2];
     cluster_sums<2>(part + ch, c, k, s);
+    if (kLayer) {
+      tot[ch] = s[0];
+      tot[c + ch] = s[1];
+      continue;
+    }
     const float mean = s[0] / hwf;
     tot[ch] = mean;
     if (rank == 0) st[ch] = mean;
@@ -822,15 +682,22 @@ norm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ scale
       if (rank == 0) st[c + ch] = fac;
     }
   }
+  if (kLayer) {
+    __syncthreads();   // tot's channel totals
+    float s[2];
+    channel_totals<2>(tot, nullptr, c, s);
+    ln_mean = s[0] / m;
+    ln_fac = 1.f / (sqrtf(fmaxf(s[1] - m * ln_mean * ln_mean, 0.f) / dof) + kEps);
+  }
   if (two_pass) {
-    // 4. "2pass": var = E[(x - mean)^2], a second pass over the slab (the
-    //    resident rows from shared memory, the streamed ones read again)
-    //    and a second exchange
+    // 4. "2pass": var = E[(x - mean)^2] (the LayerNorm's: sum (x - mean)^2
+    //    / (m - 1)), a second pass over the slab (the resident rows from
+    //    shared memory, the streamed ones read again) and a second exchange
     __syncthreads();   // tot's means
     if (active) {
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        t.mean[i] = tot[c0 + i];
+        t.mean[i] = kLayer ? ln_mean : tot[c0 + i];
         t.b[i] = 0.f;
       }
       sum_rows<true, true>(t, xg, res, rows, c, lane, lanes, keep);
@@ -842,9 +709,26 @@ norm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ scale
     for (int ch = threadIdx.x; ch < c; ch += kThreads) {
       float s[1];
       cluster_sums<1>(part + 2 * c + ch, c, k, s);
+      if (kLayer) {
+        tot[ch] = s[0];
+        continue;
+      }
       const float fac = 1.f / sqrtf(s[0] / hwf + kEps);
       tot[c + ch] = fac;
       if (rank == 0) st[c + ch] = fac;
+    }
+    if (kLayer) {
+      __syncthreads();   // tot's channel totals
+      float s[1];
+      channel_totals<1>(tot, nullptr, c, s);
+      ln_fac = 1.f / (sqrtf(s[0] / dof) + kEps);
+    }
+  }
+  if (kLayer && rank == 0) {
+    // the per-sample statistics, at every channel of stats
+    for (int ch = threadIdx.x; ch < c; ch += kThreads) {
+      st[ch] = ln_mean;
+      st[c + ch] = ln_fac;
     }
   }
   cluster_arrive();   // this block is done reading the others' shared memory
@@ -856,9 +740,9 @@ norm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ scale
   if (active) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      const size_t nc = (size_t)n * c + c0 + i;
-      t.mean[i] = tot[c0 + i];
-      t.f[i] = tot[c + c0 + i];
+      const size_t nc = kLayer ? (size_t)c0 + i : (size_t)n * c + c0 + i;
+      t.mean[i] = kLayer ? ln_mean : tot[c0 + i];
+      t.f[i] = kLayer ? ln_fac : tot[c + c0 + i];
       t.sc[i] = kAffine ? scale[nc] : 1.f;
       t.bi[i] = kAffine ? bias[nc] : 0.f;
     }
@@ -872,15 +756,39 @@ norm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ scale
   stamp(trace, 5);
 }
 
+// The instance norm and AdaIN forward: one cluster of k blocks per sample.
+template <typename T, bool kAffine, bool kRelu, bool kResidual>
+__global__ void __launch_bounds__(kThreads)
+norm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                        const float* __restrict__ bias, const T* __restrict__ residual,
+                        T* __restrict__ y, float* __restrict__ stats, int hw, int c,
+                        int resident, int two_pass) {
+  norm_fwd<T, kAffine, kRelu, kResidual, false>(x, scale, bias, residual, y, stats, hw, c,
+                                                resident, two_pass);
+}
+
+// The reference LayerNorm forward: the same cluster per sample, its
+// statistics summed over the channels too; gamma, beta fp32 [c].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ln_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                      const float* __restrict__ beta, T* __restrict__ y,
+                      float* __restrict__ stats, int hw, int c, int resident, int two_pass) {
+  norm_fwd<T, true, false, false, true>(x, gamma, beta, nullptr, y, stats, hw, c, resident,
+                                        two_pass);
+}
+
 struct FwdArgs {
   const void* x;
-  const float* scale;
-  const float* bias;
+  const float* scale;     // AdaIN's [n][c]; the LayerNorm's gamma [c]
+  const float* bias;      // AdaIN's [n][c]; the LayerNorm's beta [c]
   const void* residual;   // the residual form's x, else NULL
   void* y;
   float* stats;
   int n, hw, c, k, resident, smem, two_pass;
 };
+
+enum FwdOp { kFwdIn = 0, kFwdAdain = 1, kFwdLn = 2 };
 
 template <typename T, bool kAffine, bool kRelu, bool kResidual>
 int launch_fwd(const FwdArgs& p, cudaStream_t stream, int* clusters) {
@@ -890,29 +798,37 @@ int launch_fwd(const FwdArgs& p, cudaStream_t stream, int* clusters) {
                         p.stats, p.hw, p.c, p.resident, p.two_pass);
 }
 
-// the instance norm (no affine, optional ReLU) or AdaIN (optional ReLU, or
-// the residual form, relu off)
-template <typename T, bool kAffine>
-int dispatch_fwd(const FwdArgs& p, int relu, int residual, cudaStream_t s, int* clusters) {
+// the instance norm (no affine, optional ReLU), AdaIN (optional ReLU, or
+// the residual form, relu off) or the LayerNorm (neither)
+template <typename T>
+int dispatch_fwd(const FwdArgs& p, int op, int relu, int residual, cudaStream_t s,
+                 int* clusters) {
   constexpr int V = Vec<T>::kWidth;
   const int bad = check_cluster(p.n, p.hw, p.c, V, p.k, p.resident, p.smem,
                                 fwd_smem(p.c, p.resident, sizeof(T), V).total);
-  if (bad || (residual && (relu || !kAffine))) return bad ? bad : (int)cudaErrorInvalidValue;
-  if constexpr (kAffine) {
-    if (residual) return launch_fwd<T, true, false, true>(p, s, clusters);
+  if (bad) return bad;
+  if (op == kFwdLn) {
+    if (relu || residual) return (int)cudaErrorInvalidValue;
+    return cluster_launch(ln_fwd_cluster_kernel<T>, p.k, p.n, p.smem, s, clusters,
+                          static_cast<const T*>(p.x), p.scale, p.bias, static_cast<T*>(p.y),
+                          p.stats, p.hw, p.c, p.resident, p.two_pass);
   }
-  return relu ? launch_fwd<T, kAffine, true, false>(p, s, clusters)
-              : launch_fwd<T, kAffine, false, false>(p, s, clusters);
+  if (op == kFwdAdain) {
+    if (residual) return relu ? (int)cudaErrorInvalidValue
+                              : launch_fwd<T, true, false, true>(p, s, clusters);
+    return relu ? launch_fwd<T, true, true, false>(p, s, clusters)
+                : launch_fwd<T, true, false, false>(p, s, clusters);
+  }
+  if (op != kFwdIn || residual) return (int)cudaErrorInvalidValue;
+  return relu ? launch_fwd<T, false, true, false>(p, s, clusters)
+              : launch_fwd<T, false, false, false>(p, s, clusters);
 }
 
-int run_fwd(const FwdArgs& p, int affine, int dtype, int relu, int residual, void* stream,
+int run_fwd(const FwdArgs& p, int op, int dtype, int relu, int residual, void* stream,
             int* clusters) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return affine ? dispatch_fwd<__nv_bfloat16, true>(p, relu, residual, s, clusters)
-                  : dispatch_fwd<__nv_bfloat16, false>(p, relu, residual, s, clusters);
-  return affine ? dispatch_fwd<float, true>(p, relu, residual, s, clusters)
-                : dispatch_fwd<float, false>(p, relu, residual, s, clusters);
+  if (dtype == 1) return dispatch_fwd<__nv_bfloat16>(p, op, relu, residual, s, clusters);
+  return dispatch_fwd<float>(p, op, relu, residual, s, clusters);
 }
 
 // ----------------------------------- backward: instance norm and AdaIN
@@ -941,13 +857,16 @@ __host__ __device__ __forceinline__ BwdSmem bwd_smem(int c, int resident, int si
   return s;
 }
 
-enum BwdOp { kIn = 0, kAdain = 1 };
+enum BwdOp { kIn = 0, kAdain = 1, kLn = 2 };
 
 // What one thread keeps: its V channels' statistics and affine, its sums
-// of g' and g' * xh, then the terms of dx = kk (g' - ma - xh mb), the
-// plain rule's order: kk = f (AdaIN: f * scale), ma = mean g', mb =
-// mean(g' xh); where g' - ma cancels (one pixel) dx is exactly 0
-template <typename T, bool kAdain, bool kRelu>
+// of g' and g' * xh, then the terms of dx.  The instance norm and AdaIN:
+// dx = kk (g' - ma - xh mb), the plain rule's order: kk = f (AdaIN: f *
+// scale), ma = mean g', mb = mean(g' xh); where g' - ma cancels (one pixel)
+// dx is exactly 0.  The LayerNorm (no ReLU, g' = g): dx = kk g - ma -
+// (x - mean) mb with kk = gamma_c f and the per-sample ma = A f / m, mb =
+// B / ((m - 1) s d).
+template <typename T, int kOp, bool kRelu>
 struct BwdLane {
   static constexpr int V = Vec<T>::kWidth;
   float mean[V], f[V], sc[V], bi[V], a[V], b[V], kk[V], ma[V], mb[V];
@@ -956,7 +875,7 @@ struct BwdLane {
   // g' = g where the forward's ReLU passed, else 0: rounded<T>(t) > 0
   __device__ __forceinline__ bool on(float xh, int i) const {
     if (!kRelu) return true;
-    return rounded<T>(kAdain ? affine(xh, sc[i], bi[i]) : xh) > 0.f;
+    return rounded<T>(kOp == kAdain ? affine(xh, sc[i], bi[i]) : xh) > 0.f;
   }
 
   // one row's 16 bytes of x and of g (yp: of y, read by the check only)
@@ -983,26 +902,39 @@ struct BwdLane {
     unpack16<T>(gq, gv);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      const float xh = normed(xv[i], mean[i], f[i]);
-      const float gi = on(xh, i) ? gv[i] : 0.f;
-      o[i] = kk[i] * (gi - ma[i] - xh * mb[i]);
+      if (kOp == kLn) {
+        o[i] = kk[i] * gv[i] - ma[i] - (xv[i] - mean[i]) * mb[i];
+      } else {
+        const float xh = normed(xv[i], mean[i], f[i]);
+        const float gi = on(xh, i) ? gv[i] : 0.f;
+        o[i] = kk[i] * (gi - ma[i] - xh * mb[i]);
+      }
     }
-    store16(out, o);
+    st16_stream(out, pack16<T>(o));
   }
 };
 
-// dx (and for AdaIN dscale = sum g' xh, dbias = sum g' per (n, c)) in one
-// launch.  kCheck: also read y and count the elements whose mask differs
-// from y > 0 into *mismatch (a check, never on the training path).
-template <typename T, bool kAdain, bool kRelu, bool kCheck>
-__global__ void __launch_bounds__(kThreads)
-norm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gr,
-                        const float* __restrict__ stats, const float* __restrict__ scale,
-                        const float* __restrict__ bias, T* __restrict__ dx,
-                        float* __restrict__ dscale, float* __restrict__ dbias,
-                        const T* __restrict__ y, unsigned* __restrict__ mismatch, int hw,
-                        int c, int resident) {
+// dx in one launch, the body of both backward kernels.  The instance norm:
+// dx alone.  AdaIN: also dscale = sum g' xh, dbias = sum g' per (n, c).
+// The LayerNorm (scale: gamma [c]): also dgamma[c] = sum_n sum g xh and
+// dbeta[c] = sum_n sum g (into dscale, dbias, [c]): rank 0 of each cluster
+// writes its sample's per-channel sums to ws [n][2][c], and the last of
+// them to finish (an atomic count in *counter, after a fence) sums them
+// over the samples in order and sets the count back to 0, for the next call
+// and for a CUDA graph's replay; no float atomics, the same bits every run.
+// kCheck: also read y and count the elements whose mask differs from y > 0
+// into *mismatch (a check, never on the training path).
+template <typename T, int kOp, bool kRelu, bool kCheck, int kMax>
+__device__ __forceinline__ void norm_bwd(const T* __restrict__ x, const T* __restrict__ gr,
+                                         const float* __restrict__ stats,
+                                         const float* __restrict__ scale,
+                                         const float* __restrict__ bias, T* __restrict__ dx,
+                                         float* __restrict__ dscale, float* __restrict__ dbias,
+                                         const T* __restrict__ y, unsigned* __restrict__ mismatch,
+                                         float* __restrict__ ws, unsigned* __restrict__ counter,
+                                         int hw, int c, int resident) {
   constexpr int V = Vec<T>::kWidth;
+  constexpr bool kAffineIn = kOp == kAdain;
   extern __shared__ __align__(16) unsigned char smem[];
   const int k = gridDim.x, rank = blockIdx.x, n = blockIdx.y;
   const int r0 = (int)((long long)rank * hw / k);
@@ -1018,11 +950,15 @@ norm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gr,
   const size_t base = ((size_t)n * hw + r0) * c;   // the slab's first element
   const int chunks = min(kChunks, res);
 
-  // 1. the whole resident part of x and g requested at once
+  // 1. the whole resident part of x and g requested at once, read once
+  //    (evict first; the forward's L2 policies: a streamed row is read for
+  //    the sums with evict_last and again for dx last-read-first, dx is
+  //    stored evict-first)
+  const uint64_t keep = policy_keep(), once = policy_once();
   {
     T* const dst[2] = {xs, gs};
     const T* const src[2] = {x + base, gr + base};
-    stage_slab<T, 2>(dst, src, bar, res, c, chunks);
+    stage_slab<T, 2>(dst, src, bar, res, c, chunks, &once);
   }
 
   const int groups = c / V, lanes = kThreads / groups;
@@ -1030,14 +966,15 @@ norm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gr,
   const bool active = lane < lanes;
   const int c0 = grp * V;
   const float* st = stats + (size_t)n * 2 * c;
-  BwdLane<T, kAdain, kRelu> t;
+  BwdLane<T, kOp, kRelu> t;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const size_t nc = (size_t)n * c + c0 + i;
-    t.mean[i] = st[c0 + i];
-    t.f[i] = st[c + c0 + i];
-    t.sc[i] = kAdain ? scale[nc] : 1.f;
-    t.bi[i] = kAdain && kRelu ? bias[nc] : 0.f;
+    // the LayerNorm's statistics: per sample, at channel 0
+    t.mean[i] = st[kOp == kLn ? 0 : c0 + i];
+    t.f[i] = st[c + (kOp == kLn ? 0 : c0 + i)];
+    t.sc[i] = kAffineIn ? scale[nc] : 1.f;
+    t.bi[i] = kAffineIn && kRelu ? bias[nc] : 0.f;
     t.a[i] = 0.f;
     t.b[i] = 0.f;
   }
@@ -1053,8 +990,8 @@ norm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gr,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const size_t off = base + (size_t)(r + u * lanes) * c + c0;
-        xr[u] = ld16(x + off);
-        gq[u] = ld16(gr + off);
+        xr[u] = ld16_hint(x + off, keep);
+        gq[u] = ld16_hint(gr + off, keep);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
@@ -1062,7 +999,7 @@ norm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gr,
     }
     for (; r < rows; r += lanes) {
       const size_t off = base + (size_t)r * c + c0;
-      t.template sum<kCheck>(ld16(x + off), ld16(gr + off), y + off);
+      t.template sum<kCheck>(ld16_hint(x + off, keep), ld16_hint(gr + off, keep), y + off);
     }
   }
   for (int j = 0; j < chunks; ++j) {
@@ -1085,276 +1022,199 @@ norm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gr,
   cluster_wait();     // acquire: so is every other block's
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
     float s[2];
-    cluster_sums<2>(part + ch, c, k, s);
+    cluster_sums<2, kMax>(part + ch, c, k, s);
     tot[ch] = s[0];
     tot[c + ch] = s[1];
-    if (kAdain && rank == 0) {
+    if (kOp == kAdain && rank == 0) {
       dbias[(size_t)n * c + ch] = s[0];
       dscale[(size_t)n * c + ch] = s[1];
+    }
+    if (kOp == kLn && rank == 0) {
+      ws[(size_t)n * 2 * c + ch] = s[0];
+      ws[(size_t)n * 2 * c + c + ch] = s[1];
     }
   }
   cluster_arrive();   // this block is done reading the others' shared memory
   __syncthreads();    // tot
+  float ab[2] = {0.f, 0.f};   // the LayerNorm's A and B
+  if (kOp == kLn) channel_totals<2>(tot, scale, c, ab);
 
-  // 5. dx: the streamed rows again (first, while they are still in L2),
-  //    then the resident rows from shared memory (IN: dx = f (g' - mean g'
-  //    - xh mean(g' xh)); AdaIN the same times scale[n, c])
+  // 5. dx: the streamed rows again (first, while they are still in L2, the
+  //    last read first), then the resident rows from shared memory (IN: dx
+  //    = f (g' - mean g' - xh mean(g' xh)); AdaIN the same times scale[n,
+  //    c]; the LayerNorm
+  //    dx = (gamma_c g - A / m) f - (x - mean) B / ((m - 1) s d), d = 1 / f =
+  //    std + eps, s = std, m = hw * c: the Pallas rule's dx = du - mean(du)
+  //    with sum (x - mean) taken as 0)
   if (active) {
     const float hwf = (float)hw;
+    const float m = hwf * (float)c;
+    const float d = 1.f / t.f[0], sd = d - kEps;
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      t.kk[i] = kAdain ? t.f[i] * t.sc[i] : t.f[i];
-      t.ma[i] = tot[c0 + i] / hwf;
-      t.mb[i] = tot[c + c0 + i] / hwf;
+      if (kOp == kLn) {
+        t.kk[i] = scale[c0 + i] * t.f[i];
+        t.ma[i] = ab[0] / m * t.f[i];
+        t.mb[i] = ab[1] / (fmaxf(m - 1.f, 1.f) * sd * d);
+      } else {
+        t.kk[i] = kAffineIn ? t.f[i] * t.sc[i] : t.f[i];
+        t.ma[i] = tot[c0 + i] / hwf;
+        t.mb[i] = tot[c + c0 + i] / hwf;
+      }
     }
+    // the streamed rows [res, rows), the last first
+    auto off = [&](int r) { return base + (size_t)(res + rows - 1 - r) * c + c0; };
     int r = res + lane;
     for (; r + (kUnroll - 1) * lanes < rows; r += kUnroll * lanes) {
       uint4 xr[kUnroll], gq[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const size_t off = base + (size_t)(r + u * lanes) * c + c0;
-        xr[u] = ld16(x + off);
-        gq[u] = ld16(gr + off);
+        xr[u] = ld16_hint(x + off(r + u * lanes), once);
+        gq[u] = ld16_hint(gr + off(r + u * lanes), once);
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        t.dx(xr[u], gq[u], dx + base + (size_t)(r + u * lanes) * c + c0);
+      for (int u = 0; u < kUnroll; ++u) t.dx(xr[u], gq[u], dx + off(r + u * lanes));
     }
-    for (; r < rows; r += lanes) {
-      const size_t off = base + (size_t)r * c + c0;
-      t.dx(ld16(x + off), ld16(gr + off), dx + off);
-    }
+    for (; r < rows; r += lanes)
+      t.dx(ld16_hint(x + off(r), once), ld16_hint(gr + off(r), once), dx + off(r));
 #pragma unroll 4
     for (r = lane; r < res; r += lanes) {
       const size_t so = (size_t)r * c + c0;
       t.dx(ld16(xs + so), ld16(gs + so), dx + base + so);
     }
   }
+
+  // 6. the LayerNorm's dgamma and dbeta: the last sample's rank 0 to get
+  //    here sums every sample's channel sums, in sample order
+  if (kOp == kLn && rank == 0) {
+    __threadfence();   // this sample's ws rows, before the count says so
+    __syncthreads();
+    int last = 0;
+    if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.y - 1;
+    if (__syncthreads_or(last)) {
+      __threadfence();
+      const int samples = gridDim.y;
+      for (int ch = threadIdx.x; ch < c; ch += kThreads) {
+        float sa = 0.f, sb = 0.f;
+#pragma unroll 8
+        for (int q = 0; q < samples; ++q) {
+          sa += __ldcg(ws + (size_t)q * 2 * c + ch);
+          sb += __ldcg(ws + (size_t)q * 2 * c + c + ch);
+        }
+        dbias[ch] = sa;
+        dscale[ch] = sb;
+      }
+      if (threadIdx.x == 0) *counter = 0u;
+    }
+  }
   cluster_wait();   // no block leaves while another may still read its part
+}
+
+// The instance-norm and AdaIN backward: one cluster of k blocks per sample.
+template <typename T, bool kAdainOp, bool kRelu, bool kCheck>
+__global__ void __launch_bounds__(kThreads)
+norm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gr,
+                        const float* __restrict__ stats, const float* __restrict__ scale,
+                        const float* __restrict__ bias, T* __restrict__ dx,
+                        float* __restrict__ dscale, float* __restrict__ dbias,
+                        const T* __restrict__ y, unsigned* __restrict__ mismatch, int hw,
+                        int c, int resident) {
+  norm_bwd<T, kAdainOp ? kAdain : kIn, kRelu, kCheck, kMaxCluster>(
+      x, gr, stats, scale, bias, dx, dscale, dbias, y, mismatch, nullptr, nullptr, hw, c,
+      resident);
+}
+
+// The reference LayerNorm's backward: the same cluster per sample, up to
+// 16 blocks; dgamma, dbeta fp32 [c] summed over the batch (ws: [n][2][c]).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gr,
+                      const float* __restrict__ stats, const float* __restrict__ gamma,
+                      T* __restrict__ dx, float* __restrict__ dgamma, float* __restrict__ dbeta,
+                      float* __restrict__ ws, unsigned* __restrict__ counter, int hw, int c,
+                      int resident) {
+  norm_bwd<T, kLn, false, false, kMaxLnCluster>(x, gr, stats, gamma, nullptr, dx, dgamma,
+                                                dbeta, nullptr, nullptr, ws, counter, hw, c,
+                                                resident);
 }
 
 struct BwdArgs {
   const void* x;
   const void* g;
   const float* stats;
-  const float* scale;
+  const float* scale;   // AdaIN's [n][c]; the LayerNorm's gamma [c]
   const float* bias;
   void* dx;
-  float* dscale;
-  float* dbias;
+  float* dscale;        // AdaIN's [n][c]; the LayerNorm's dgamma [c]
+  float* dbias;         // AdaIN's [n][c]; the LayerNorm's dbeta [c]
   const void* y;        // the check's forward output, else NULL
   unsigned* mismatch;   // the check's count, else NULL
+  float* ws;            // the LayerNorm's [n][2][c], else NULL
+  unsigned* counter;    // the LayerNorm's count, 0 between calls, else NULL
   int n, hw, c, k, resident, smem;
 };
 
-template <typename T, bool kAdain, bool kRelu, bool kCheck>
+template <typename T, bool kAdainOp, bool kRelu, bool kCheck>
 int launch_bwd(const BwdArgs& p, cudaStream_t stream, int* clusters) {
-  return cluster_launch(norm_bwd_cluster_kernel<T, kAdain, kRelu, kCheck>, p.k, p.n, p.smem,
+  return cluster_launch(norm_bwd_cluster_kernel<T, kAdainOp, kRelu, kCheck>, p.k, p.n, p.smem,
                         stream, clusters, static_cast<const T*>(p.x),
                         static_cast<const T*>(p.g), p.stats, p.scale, p.bias,
                         static_cast<T*>(p.dx), p.dscale, p.dbias,
                         static_cast<const T*>(p.y), p.mismatch, p.hw, p.c, p.resident);
 }
 
-template <typename T, bool kAdain>
-int dispatch_bwd(const BwdArgs& p, int relu, int check, cudaStream_t stream, int* clusters) {
+template <typename T>
+int dispatch_bwd(const BwdArgs& p, int op, int relu, int check, cudaStream_t stream,
+                 int* clusters) {
   constexpr int V = Vec<T>::kWidth;
   const int bad = check_cluster(p.n, p.hw, p.c, V, p.k, p.resident, p.smem,
-                                bwd_smem(p.c, p.resident, sizeof(T), V).total);
+                                bwd_smem(p.c, p.resident, sizeof(T), V).total,
+                                op == kLn ? kMaxLnCluster : kMaxCluster);
   if (bad || (check && !relu)) return bad ? bad : (int)cudaErrorInvalidValue;
-  if (check) return launch_bwd<T, kAdain, true, true>(p, stream, clusters);
-  if (relu) return launch_bwd<T, kAdain, true, false>(p, stream, clusters);
-  return launch_bwd<T, kAdain, false, false>(p, stream, clusters);
+  if (op == kLn) {
+    if (relu) return (int)cudaErrorInvalidValue;
+    return cluster_launch(ln_bwd_cluster_kernel<T>, p.k, p.n, p.smem, stream, clusters,
+                          static_cast<const T*>(p.x), static_cast<const T*>(p.g), p.stats,
+                          p.scale, static_cast<T*>(p.dx), p.dscale, p.dbias, p.ws, p.counter,
+                          p.hw, p.c, p.resident);
+  }
+  if (op == kAdain) {
+    if (check) return launch_bwd<T, true, true, true>(p, stream, clusters);
+    return relu ? launch_bwd<T, true, true, false>(p, stream, clusters)
+                : launch_bwd<T, true, false, false>(p, stream, clusters);
+  }
+  if (op != kIn) return (int)cudaErrorInvalidValue;
+  if (check) return launch_bwd<T, false, true, true>(p, stream, clusters);
+  return relu ? launch_bwd<T, false, true, false>(p, stream, clusters)
+              : launch_bwd<T, false, false, false>(p, stream, clusters);
 }
 
-// check: the variant that reads y and counts mismatches (p.y, p.mismatch)
-int run_bwd(const BwdArgs& p, int adain, int dtype, int relu, int check, void* stream,
+// op: 0 instance norm, 1 AdaIN, 2 the LayerNorm; check: the variant that
+// reads y and counts mismatches (p.y, p.mismatch)
+int run_bwd(const BwdArgs& p, int op, int dtype, int relu, int check, void* stream,
             int* clusters) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return adain ? dispatch_bwd<__nv_bfloat16, true>(p, relu, check, s, clusters)
-                 : dispatch_bwd<__nv_bfloat16, false>(p, relu, check, s, clusters);
-  return adain ? dispatch_bwd<float, true>(p, relu, check, s, clusters)
-               : dispatch_bwd<float, false>(p, relu, check, s, clusters);
-}
-
-// ------------------------------------------------ backward: the LayerNorm
-
-// LayerNorm backward workspace: part_a, part_b [n][splits][c] (per-block
-// sums of g and g * xh); sum_a, sum_b [n][c] (their totals per sample);
-// scal [n][2] (A and B below)
-struct BwdWork {
-  float* part_a;
-  float* part_b;
-  float* sum_a;
-  float* sum_b;
-  float* scal;
-};
-
-// Pass 1: per channel over this block's rows, sums of g and g * xh with
-// xh = (x - mean) * factor, the statistics per sample.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ln_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ gr,
-                   const float* __restrict__ stats, BwdWork w, Geom g) {
-  constexpr int V = Vec<T>::kWidth;
-  __shared__ float red_a[kThreads * V];
-  __shared__ float red_b[kThreads * V];
-  const int s = blockIdx.x, n = blockIdx.y;
-  const int groups = g.c / V, lanes = kThreads / groups;
-  const int grp = threadIdx.x % groups, lane = threadIdx.x / groups;
-  const int c0 = grp * V;
-  const float* st = stats + (size_t)n * 2 * g.c;
-  const float mean = st[0], f = st[g.c];
-  float a[V], b[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    a[i] = 0.f;
-    b[i] = 0.f;
-  }
-  if (lane < lanes) {
-    const size_t base = (size_t)n * g.hw * g.c + c0;
-    const int r_end = min(g.hw, (s + 1) * g.rows);
-    for (int r = s * g.rows + lane; r < r_end; r += lanes) {
-      const size_t off = base + (size_t)r * g.c;
-      float xv[V], gv[V];
-      load16(x + off, xv);
-      load16(gr + off, gv);
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        a[i] += gv[i];
-        b[i] += gv[i] * ((xv[i] - mean) * f);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      red_a[lane * g.c + c0 + i] = a[i];
-      red_b[lane * g.c + c0 + i] = b[i];
-    }
-  }
-  __syncthreads();
-  store_partials(red_a, red_b, w.part_a, w.part_b, lanes, g, n, s);
-}
-
-// Pass 2, one block per sample: per-channel totals over the row chunks,
-// and A = sum_c gamma_c sum_a[c], B = sum_c gamma_c sum_b[c].
-__global__ void __launch_bounds__(kThreads)
-ln_bwd_finalize_kernel(const float* __restrict__ gamma, BwdWork w, Geom g) {
-  __shared__ float scratch[kThreads / 32];
-  const int n = blockIdx.x;
-  const float* pa = w.part_a + (size_t)n * g.splits * g.c;
-  const float* pb = w.part_b + (size_t)n * g.splits * g.c;
-  float ta = 0.f, tb = 0.f;
-  for (int c = threadIdx.x; c < g.c; c += kThreads) {
-    float sa = 0.f, sb = 0.f;
-    for (int s = 0; s < g.splits; ++s) {
-      sa += pa[s * g.c + c];
-      sb += pb[s * g.c + c];
-    }
-    w.sum_a[(size_t)n * g.c + c] = sa;
-    w.sum_b[(size_t)n * g.c + c] = sb;
-    ta += gamma[c] * sa;
-    tb += gamma[c] * sb;
-  }
-  ta = block_sum(ta, scratch);
-  tb = block_sum(tb, scratch);
-  if (threadIdx.x == 0) {
-    w.scal[2 * n] = ta;
-    w.scal[2 * n + 1] = tb;
-  }
-}
-
-// Pass 3: dx = (gamma_c g - A / m) * f - (x - mean) * B / ((m-1) s d), one
-// read of x and g, one write.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ln_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gr,
-                    const float* __restrict__ stats, const float* __restrict__ gamma,
-                    T* __restrict__ dx, BwdWork w, Geom g) {
-  constexpr int V = Vec<T>::kWidth;
-  const int s = blockIdx.x, n = blockIdx.y;
-  const int groups = g.c / V, lanes = kThreads / groups;
-  const int grp = threadIdx.x % groups, lane = threadIdx.x / groups;
-  if (lane >= lanes) return;
-  const int c0 = grp * V;
-  const float* st = stats + (size_t)n * 2 * g.c;
-  const float mean = st[0], f = st[g.c];
-  const float d = 1.f / f, sd = d - kEps;
-  const float m = (float)g.hw * (float)g.c;
-  const float a = w.scal[2 * n], b = w.scal[2 * n + 1];
-  const float cc = a / m * f, cu = b / (fmaxf(m - 1.f, 1.f) * sd * d);
-  float cg[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) cg[i] = gamma[c0 + i] * f;
-  const size_t base = (size_t)n * g.hw * g.c + c0;
-  const int r_end = min(g.hw, (s + 1) * g.rows);
-  for (int r = s * g.rows + lane; r < r_end; r += lanes) {
-    const size_t off = base + (size_t)r * g.c;
-    float xv[V], gv[V], o[V];
-    load16(x + off, xv);
-    load16(gr + off, gv);
-#pragma unroll
-    for (int i = 0; i < V; ++i) o[i] = cg[i] * gv[i] - cc - (xv[i] - mean) * cu;
-    store16(dx + off, o);
-  }
-}
-
-// Pass 4: dgamma[c] = sum_n sum_b[n][c] and dbeta[c] = sum_n sum_a[n][c],
-// one thread per channel, samples in order.
-__global__ void __launch_bounds__(kThreads)
-ln_param_grads_kernel(BwdWork w, float* __restrict__ dgamma, float* __restrict__ dbeta,
-                      Geom g) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= g.c) return;
-  float da = 0.f, db = 0.f;
-  for (int n = 0; n < g.n; ++n) {
-    da += w.sum_a[(size_t)n * g.c + c];
-    db += w.sum_b[(size_t)n * g.c + c];
-  }
-  dbeta[c] = da;
-  dgamma[c] = db;
-}
-
-template <typename T>
-int launch_ln_bwd(const void* x, const void* gr, const float* stats, const float* gamma,
-                  void* dx, float* dgamma, float* dbeta, void* ws, int n, int hw, int c,
-                  int splits, cudaStream_t stream) {
-  Geom g;
-  const int bad = check(n, hw, c, splits, Vec<T>::kWidth, &g);
-  if (bad) return bad;
-  float* f = static_cast<float*>(ws);
-  const size_t part = (size_t)n * splits * c;
-  const BwdWork w{f, f + part, f + 2 * part, f + 2 * part + (size_t)n * c,
-                  f + 2 * part + 2 * (size_t)n * c};
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(gr);
-  const dim3 grid(g.splits, g.n);
-  ln_bwd_sums_kernel<T><<<grid, kThreads, 0, stream>>>(xt, gt, stats, w, g);
-  ln_bwd_finalize_kernel<<<g.n, kThreads, 0, stream>>>(gamma, w, g);
-  ln_bwd_apply_kernel<T><<<grid, kThreads, 0, stream>>>(xt, gt, stats, gamma,
-                                                        static_cast<T*>(dx), w, g);
-  ln_param_grads_kernel<<<(c + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      w, dgamma, dbeta, g);
-  return (int)cudaGetLastError();
+  if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(p, op, relu, check, s, clusters);
+  return dispatch_bwd<float>(p, op, relu, check, s, clusters);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  stats: float32 [n][2][c], written by
 // the forward and read by the backward.  Each returns what its launch
-// returned (cudaLaunchKernelEx for the cluster kernels; cudaGetLastError()
-// after the LayerNorm's launches).
+// returned (cudaLaunchKernelEx), or cudaErrorInvalidValue for a call the
+// kernels cannot take.
 //
-// The instance norm and AdaIN, forward and backward, are one cluster of k
-// blocks per sample, each keeping `resident` rows of its slab in `smem`
-// bytes of shared memory (ops/cuda/kernels.py's fwd_plan and bwd_plan).
+// Every one is one cluster of k blocks per sample, each keeping `resident`
+// rows of its slab in `smem` bytes of shared memory (ops/cuda/kernels.py's
+// fwd_plan, bwd_plan and ln_bwd_plan).
 
 extern "C" int dwc_instance_norm(const void* x, void* y, void* stats, int n, int hw, int c,
                                  int dtype, int two_pass, int relu, int k, int resident,
                                  int smem, void* stream) {
   const FwdArgs p{x, nullptr, nullptr, nullptr, y, static_cast<float*>(stats),
                   n, hw, c, k, resident, smem, two_pass};
-  return run_fwd(p, 0, dtype, relu, 0, stream, nullptr);
+  return run_fwd(p, kFwdIn, dtype, relu, 0, stream, nullptr);
 }
 
 // scale, bias: float32 [n][c].  residual: NULL for AdaIN, else the tensor
@@ -1366,39 +1226,35 @@ extern "C" int dwc_adain(const void* x, const void* scale, const void* bias,
   const FwdArgs p{x, static_cast<const float*>(scale), static_cast<const float*>(bias),
                   residual, y, static_cast<float*>(stats), n, hw, c, k, resident, smem,
                   two_pass};
-  return run_fwd(p, 1, dtype, relu, residual != nullptr, stream, nullptr);
+  return run_fwd(p, kFwdAdain, dtype, relu, residual != nullptr, stream, nullptr);
 }
 
-// Set up one configuration of the cluster forward (affine: 0 instance norm,
-// 1 AdaIN; residual: AdaIN's residual form) and write to *clusters how many
-// of its clusters fit on the current card at once (0: none does).
-extern "C" int dwc_norm_fwd_clusters(int affine, int dtype, int relu, int residual, int c,
-                                     int k, int resident, int smem, int* clusters) {
+// gamma, beta: float32 [c].  stats: the per-sample mean and factor 1 / (std
+// + eps), written at every channel (the backward reads channel 0).
+extern "C" int dwc_layer_norm_ref(const void* x, const void* gamma, const void* beta, void* y,
+                                  void* stats, int n, int hw, int c, int dtype, int two_pass,
+                                  int k, int resident, int smem, void* stream) {
+  const FwdArgs p{x, static_cast<const float*>(gamma), static_cast<const float*>(beta),
+                  nullptr, y, static_cast<float*>(stats), n, hw, c, k, resident, smem,
+                  two_pass};
+  return run_fwd(p, kFwdLn, dtype, 0, 0, stream, nullptr);
+}
+
+// Set up one configuration of the cluster forward (op: 0 instance norm, 1
+// AdaIN, 2 the LayerNorm; residual: AdaIN's residual form) and write to
+// *clusters how many of its clusters fit on the current card at once (0:
+// none does).
+extern "C" int dwc_norm_fwd_clusters(int op, int dtype, int relu, int residual, int c, int k,
+                                     int resident, int smem, int* clusters) {
   const FwdArgs p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                   1, k, c, k, resident, smem, 0};
-  return run_fwd(p, affine, dtype, relu, residual, nullptr, clusters);
+  return run_fwd(p, op, dtype, relu, residual, nullptr, clusters);
 }
 
 // Set (buf: a device buffer of n * k * 6 uint64) or clear (NULL) the
 // forward's phase trace; every later forward launch writes into it.
 extern "C" int dwc_norm_fwd_trace(void* buf) {
   return (int)cudaMemcpyToSymbol(g_fwd_trace, &buf, sizeof(buf));
-}
-
-// ws: float32 workspace of 2 * n * splits * c elements.
-extern "C" int dwc_layer_norm_ref(const void* x, const void* gamma, const void* beta, void* y,
-                                  void* stats, void* ws, int n, int hw, int c, int splits,
-                                  int dtype, int two_pass, void* stream) {
-  Geom g;
-  const int bad = check(n, hw, c, splits, dtype == 1 ? 8 : 4, &g);
-  if (bad) return bad;
-  const float* ga = static_cast<const float*>(gamma);
-  const float* be = static_cast<const float*>(beta);
-  float* w = static_cast<float*>(ws);
-  float* st = static_cast<float*>(stats);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_ln<__nv_bfloat16>(x, ga, be, y, st, w, g, two_pass, s);
-  return launch_ln<float>(x, ga, be, y, st, w, g, two_pass, s);
 }
 
 // relu: the forward fused a ReLU; its mask is recomputed from x and the
@@ -1411,7 +1267,8 @@ extern "C" int dwc_instance_norm_bwd(const void* x, const void* g, const void* s
                                      int c, int dtype, int relu, int k, int resident,
                                      int smem, void* stream) {
   const BwdArgs p{x, g, static_cast<const float*>(stats), nullptr, nullptr, dx, nullptr,
-                  nullptr, y, static_cast<unsigned*>(mismatch), n, hw, c, k, resident, smem};
+                  nullptr, y, static_cast<unsigned*>(mismatch), nullptr, nullptr,
+                  n, hw, c, k, resident, smem};
   return run_bwd(p, kIn, dtype, relu, y != nullptr, stream, nullptr);
 }
 
@@ -1425,33 +1282,32 @@ extern "C" int dwc_adain_bwd(const void* x, const void* g, const void* stats,
                              void* stream) {
   const BwdArgs p{x, g, static_cast<const float*>(stats), static_cast<const float*>(scale),
                   static_cast<const float*>(bias), dx, static_cast<float*>(dscale),
-                  static_cast<float*>(dbias), y, static_cast<unsigned*>(mismatch), n, hw, c,
-                  k, resident, smem};
+                  static_cast<float*>(dbias), y, static_cast<unsigned*>(mismatch), nullptr,
+                  nullptr, n, hw, c, k, resident, smem};
   return run_bwd(p, kAdain, dtype, relu, y != nullptr, stream, nullptr);
 }
 
+// dgamma, dbeta: float32 [c] outputs, summed over the batch.  ws: float32
+// workspace [n][2][c]; counter: one uint32 that is 0 before the call (the
+// kernel leaves it 0).
+extern "C" int dwc_layer_norm_ref_bwd(const void* x, const void* g, const void* stats,
+                                      const void* gamma, void* dx, void* dgamma, void* dbeta,
+                                      void* ws, void* counter, int n, int hw, int c, int dtype,
+                                      int k, int resident, int smem, void* stream) {
+  const BwdArgs p{x, g, static_cast<const float*>(stats), static_cast<const float*>(gamma),
+                  nullptr, dx, static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+                  nullptr, nullptr, static_cast<float*>(ws), static_cast<unsigned*>(counter),
+                  n, hw, c, k, resident, smem};
+  return run_bwd(p, kLn, dtype, 0, 0, stream, nullptr);
+}
+
 // Set up one configuration of the cluster backward (op: 0 instance norm, 1
-// AdaIN; check: the mask-check variant) and write to *clusters how many of
-// its clusters fit on the current card at once (0: none does).
+// AdaIN, 2 the LayerNorm; check: the mask-check variant) and write to
+// *clusters how many of its clusters fit on the current card at once (0:
+// none does).
 extern "C" int dwc_norm_bwd_clusters(int op, int dtype, int relu, int check, int c, int k,
                                      int resident, int smem, int* clusters) {
   const BwdArgs p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, 1, k, c, k, resident, smem};
+                  nullptr, nullptr, nullptr, nullptr, 1, k, c, k, resident, smem};
   return run_bwd(p, op, dtype, relu, check, nullptr, clusters);
-}
-
-// ws: float32 workspace of 2 * n * splits * c + 2 * n * c + 2 * n elements.
-// dgamma, dbeta: float32 [c] outputs, summed over the batch.
-extern "C" int dwc_layer_norm_ref_bwd(const void* x, const void* g, const void* stats,
-                                      const void* gamma, void* dx, void* dgamma, void* dbeta,
-                                      void* ws, int n, int hw, int c, int splits, int dtype,
-                                      void* stream) {
-  const float* st = static_cast<const float*>(stats);
-  const float* ga = static_cast<const float*>(gamma);
-  float* dg = static_cast<float*>(dgamma);
-  float* db = static_cast<float*>(dbeta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_ln_bwd<__nv_bfloat16>(x, g, st, ga, dx, dg, db, ws, n, hw, c, splits, s);
-  return launch_ln_bwd<float>(x, g, st, ga, dx, dg, db, ws, n, hw, c, splits, s);
 }

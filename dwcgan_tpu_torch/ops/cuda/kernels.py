@@ -17,13 +17,12 @@ backward takes it back, so it never recomputes the moments.  Autograd is
 `ops/norms.py`'s business: these wrappers take and return plain tensors.
 
 The instance norm and AdaIN, forward and backward, are one cluster kernel
-per call, laid out by `fwd_plan` and `bwd_plan`: k blocks per sample, each
-keeping as many rows of its slab of x (the backward: of x and g) in shared
-memory as its plan gives it.  A fused ReLU's mask is recomputed in the
-backward kernel from x and the statistics; `relu_mask_mismatches` counts
-where that mask differs from a forward output's y > 0 (a check; 0 is
-right).  The reference LayerNorm keeps a (row chunk, sample) split of
-three or four launches with an fp32 workspace.
+per call, and so is the reference LayerNorm, laid out by `fwd_plan`,
+`bwd_plan` and `ln_bwd_plan`: k blocks per sample, each keeping as many
+rows of its slab of x (the backward: of x and g) in shared memory as its
+plan gives it.  A fused ReLU's mask is recomputed in the backward kernel
+from x and the statistics; `relu_mask_mismatches` counts where that mask
+differs from a forward output's y > 0 (a check; 0 is right).
 
 The sources are `dwcgan_tpu_torch/csrc/norm_kernels.cu` and
 `stem_kernels.cu`; the library is built with nvcc at first use
@@ -48,7 +47,6 @@ LAUNCHES = {"instance_norm": 0, "adain": 0, "adain_residual": 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
 _THREADS = 256                                 # threads per block (csrc)
-_SPLIT_BLOCKS_PER_SM = 4   # the LayerNorm's split kernels
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -57,25 +55,26 @@ _SIGNATURES = {
     # x, scale, bias, residual, y, stats, n, hw, c, dtype, two_pass, relu, k,
     # resident, smem, stream
     "dwc_adain": [_P] * 6 + [_I] * 9 + [_P],
-    # affine (0 IN, 1 AdaIN), dtype, relu, residual, c, k, resident, smem,
-    # *clusters
+    # x, gamma, beta, y, stats, n, hw, c, dtype, two_pass, k, resident, smem,
+    # stream
+    "dwc_layer_norm_ref": [_P] * 5 + [_I] * 8 + [_P],
+    # op (0 IN, 1 AdaIN, 2 LayerNorm), dtype, relu, residual, c, k,
+    # resident, smem, *clusters
     "dwc_norm_fwd_clusters": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
     # buf (the forward's phase trace, or NULL)
     "dwc_norm_fwd_trace": [_P],
-    # x, gamma, beta, y, stats, ws, n, hw, c, splits, dtype, two_pass, stream
-    "dwc_layer_norm_ref": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, g, stats, dx, y (the check's, or NULL), mismatch (or NULL), n, hw,
     # c, dtype, relu, k, resident, smem, stream
     "dwc_instance_norm_bwd": [_P] * 6 + [_I] * 8 + [_P],
     # x, g, stats, scale, bias, dx, dscale, dbias, y, mismatch, n, hw, c,
     # dtype, relu, k, resident, smem, stream
     "dwc_adain_bwd": [_P] * 10 + [_I] * 8 + [_P],
-    # op (0 IN, 1 AdaIN), dtype, relu, check, c, k, resident, smem, *clusters
+    # x, g, stats, gamma, dx, dgamma, dbeta, ws, counter, n, hw, c, dtype, k,
+    # resident, smem, stream
+    "dwc_layer_norm_ref_bwd": [_P] * 9 + [_I] * 7 + [_P],
+    # op (0 IN, 1 AdaIN, 2 LayerNorm), dtype, relu, check, c, k, resident,
+    # smem, *clusters
     "dwc_norm_bwd_clusters": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
-    # x, g, stats, gamma, dx, dgamma, dbeta, ws, n, hw, c, splits, dtype,
-    # stream
-    "dwc_layer_norm_ref_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _P],
     # x, w2p, y, stats, ws, n, h, w, c, dtype, norm_in, relu, pad, two_pass,
     # stream
     "dwc_stem_conv7": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
@@ -136,17 +135,6 @@ def _check_param(name: str, x: torch.Tensor, p: torch.Tensor, shape) -> None:
                          f"{tuple(p.shape)} on {p.device}")
 
 
-def _geometry(x: torch.Tensor):
-    """(n, hw, c, splits) of the LayerNorm's split kernels: rows of each
-    sample are cut into `splits` chunks so that about _SPLIT_BLOCKS_PER_SM
-    blocks per SM are in flight."""
-    n, c, h, w = x.shape
-    hw = h * w
-    lanes = _THREADS // (c // _VEC[x.dtype])
-    target = -(-_SPLIT_BLOCKS_PER_SM * _sm_count(x.device.index or 0) // n)
-    return n, hw, c, max(1, min(target, -(-hw // lanes)))
-
-
 def _f32(*shape, like: torch.Tensor) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
@@ -172,8 +160,11 @@ def _ptr(t):
 _SMEM_SM = 233472    # shared memory of an SM (228 KB)
 _SMEM_RESERVED = 1024   # what the card reserves of it for each block
 _CLUSTER = 8         # blocks per sample: the portable cluster size
+_LN_CLUSTER = 16     # the LayerNorm backward's: Hopper's non-portable size
 _CHUNKS = 4          # bulk copies per block (csrc kChunks)
-_BWD_PER_SM = 2      # the backward's blocks per SM
+_BWD_PER_SM = 2      # rows 5-6's backward: blocks per SM
+# op codes of the cluster kernels' C entry points (csrc FwdOp, BwdOp)
+_IN, _ADAIN, _LN = 0, 1, 2
 
 
 def smem_budget(per_sm: int) -> int:
@@ -198,18 +189,18 @@ def cluster_slabs(hw: int, k: int):
 
 def _cluster_plan(name: str, n: int, hw: int, c: int, dtype: torch.dtype,
                   staged: int, fixed_floats: int, budget: int,
-                  k: int = None) -> ClusterPlan:
-    """k = min(8, hw) blocks per sample (or `k`), each keeping the first
-    `resident` rows of its slab of the `staged` tensors in shared memory
-    beside the block's sums (2 * 256 * V lane partials, `fixed_floats` * c
-    floats, four mbarriers), as many as fit in `budget` bytes.  Raises on
-    a shape the kernels cannot take."""
+                  k: int = None, max_k: int = _CLUSTER) -> ClusterPlan:
+    """k = min(8, hw) blocks per sample (or min(`k`, `max_k`, hw)), each
+    keeping the first `resident` rows of its slab of the `staged` tensors in
+    shared memory beside the block's sums (2 * 256 * V lane partials,
+    `fixed_floats` * c floats, four mbarriers), as many as fit in `budget`
+    bytes.  Raises on a shape the kernels cannot take."""
     if dtype not in _VEC:
         raise TypeError(f"{name}: dtype {dtype} not supported")
     vec, size = _VEC[dtype], torch.finfo(dtype).bits // 8
     if n < 1 or n > 65535 or hw < 1 or c < vec or c % vec or c // vec > _THREADS:
         raise ValueError(f"{name}: no plan for n {n}, hw {hw}, c {c}, {dtype}")
-    k = min(k or _CLUSTER, _CLUSTER, hw)
+    k = min(k or _CLUSTER, max_k, hw)
     rows = -(-hw // k)
     fixed = 2 * _THREADS * vec * 4 + fixed_floats * c * 4 + _CHUNKS * 8
     per_row = staged * c * size
@@ -234,10 +225,11 @@ _FWD_PER_SM = 1
 def fwd_plan(n: int, hw: int, c: int, dtype: torch.dtype, per_sm: int = None,
              k: int = None) -> ClusterPlan:
     """The cluster forward's layout for an [n, c, h, w] activation with
-    hw = h * w: k = min(6, hw) blocks per sample, each staging the first
-    rows of its slab of x, as many as fit beside 5 * c floats of sums and
-    statistics in `smem_budget(1)` bytes.  `per_sm` and `k`: another layout
-    (a sweep's).  Raises on a shape it cannot take."""
+    hw = h * w, the instance norm's, AdaIN's and the LayerNorm's: k =
+    min(6, hw) blocks per sample, each staging the first rows of its slab
+    of x, as many as fit beside 5 * c floats of sums and statistics in
+    `smem_budget(1)` bytes.  `per_sm` and `k`: another layout (a sweep's).
+    Raises on a shape it cannot take."""
     return _cluster_plan("fwd_plan", n, hw, c, dtype, 1, 5,
                          smem_budget(per_sm or _FWD_PER_SM), k or _FWD_K)
 
@@ -253,6 +245,28 @@ def bwd_plan(n: int, hw: int, c: int, dtype: torch.dtype) -> ClusterPlan:
     return _cluster_plan("bwd_plan", n, hw, c, dtype, 2, 4, smem_budget(_BWD_PER_SM))
 
 
+# The LayerNorm backward's layout: the instance norm's shared memory layout
+# (x and g staged beside 4 * c floats), 16 blocks per sample (a non-portable
+# cluster), two blocks per SM: 14 clusters on the H100 at once, each keeping
+# 74 % of a [., 128, 64, 64] sample resident and 37 % of a [., 64, 128, 128]
+# one, and one block's loads overlapping the other's sums and stores.  On
+# the H100 it beat every other layout of `chip_smoke.sweep_ln_plans` (k 4,
+# 6, 8, 12, 16 x 1-2 blocks per SM) per training step.
+_LN_BWD_K = 16
+_LN_BWD_PER_SM = 2
+
+
+def ln_bwd_plan(n: int, hw: int, c: int, dtype: torch.dtype, per_sm: int = None,
+                k: int = None) -> ClusterPlan:
+    """The LayerNorm backward's layout: k = min(16, hw) blocks per sample,
+    staging x and g beside 4 * c floats of sums in `smem_budget(2)` bytes.
+    `per_sm` and `k` (up to 16): another layout (a sweep's).  Raises on a
+    shape it cannot take."""
+    return _cluster_plan("ln_bwd_plan", n, hw, c, dtype, 2, 4,
+                         smem_budget(per_sm or _LN_BWD_PER_SM), k or _LN_BWD_K,
+                         max_k=_LN_CLUSTER)
+
+
 def _clusters(name: str, fn, device: int, args) -> int:
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
@@ -266,21 +280,21 @@ def _clusters(name: str, fn, device: int, args) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def fwd_clusters(device: int, affine: bool, dtype: torch.dtype, relu: bool,
+def fwd_clusters(device: int, op: int, dtype: torch.dtype, relu: bool,
                  residual: bool, c: int, plan: ClusterPlan) -> int:
-    """Set the cluster forward up for this configuration on card `device`
-    (once) and return how many of its clusters fit on the card at once;
-    raise if none does."""
+    """Set the cluster forward up for this configuration (op 0 instance
+    norm, 1 AdaIN, 2 the LayerNorm) on card `device` (once) and return how
+    many of its clusters fit on the card at once; raise if none does."""
     return _clusters("norm forward", _lib().dwc_norm_fwd_clusters, device,
-                     (int(affine), _DTYPE_CODE[dtype], int(relu), int(residual), c,
+                     (op, _DTYPE_CODE[dtype], int(relu), int(residual), c,
                       plan.k, plan.resident, plan.smem))
 
 
 @functools.lru_cache(maxsize=None)
 def bwd_clusters(device: int, op: int, dtype: torch.dtype, relu: bool,
                  check: bool, c: int, plan: ClusterPlan) -> int:
-    """The same for the cluster backward (op 0 instance norm, 1 AdaIN;
-    `check`: the mask-check variant)."""
+    """The same for the cluster backward (op 0 instance norm, 1 AdaIN, 2
+    the LayerNorm; `check`: the mask-check variant)."""
     return _clusters("norm backward", _lib().dwc_norm_bwd_clusters, device,
                      (op, _DTYPE_CODE[dtype], int(relu), int(check), c, plan.k,
                       plan.resident, plan.smem))
@@ -288,18 +302,18 @@ def bwd_clusters(device: int, op: int, dtype: torch.dtype, relu: bool,
 
 # ------------------------------------------------------------------ forward
 
-def _forward(name: str, fn, x: torch.Tensor, affine: bool, relu: bool,
+def _forward(name: str, fn, x: torch.Tensor, op: int, relu: bool,
              residual: bool, two_pass: bool, params, plan: ClusterPlan):
     """One launch of the cluster forward on x; `params`: the pointers
     between x and y in `fn`'s signature.  Returns (y, stats)."""
     n, c, h, w = x.shape
     plan = plan or fwd_plan(n, h * w, c, x.dtype)
-    fwd_clusters(x.device.index or 0, affine, x.dtype, relu, residual, c, plan)
+    fwd_clusters(x.device.index or 0, op, x.dtype, relu, residual, c, plan)
     y = torch.empty_like(x, memory_format=torch.channels_last)
     stats = _f32(n, 2, c, like=x)
+    flags = (int(two_pass),) if op == _LN else (int(two_pass), int(relu))
     _run(name, fn, x.device, x.data_ptr(), *params, y.data_ptr(), stats.data_ptr(),
-         n, h * w, c, _DTYPE_CODE[x.dtype], int(two_pass), int(relu), plan.k,
-         plan.resident, plan.smem)
+         n, h * w, c, _DTYPE_CODE[x.dtype], *flags, plan.k, plan.resident, plan.smem)
     return y, stats
 
 
@@ -309,7 +323,7 @@ def instance_norm(x: torch.Tensor, relu: bool = False, two_pass: bool = True,
     Returns (y, stats).  `plan`: a layout other than `fwd_plan`'s (a
     sweep's)."""
     _check_activation("instance_norm", x)
-    return _forward("instance_norm", _lib().dwc_instance_norm, x, False, relu,
+    return _forward("instance_norm", _lib().dwc_instance_norm, x, _IN, relu,
                     False, two_pass, (), plan)
 
 
@@ -320,7 +334,7 @@ def adain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _check_activation("adain", x)
     for p in (scale, bias):
         _check_param("adain", x, p, x.shape[:2])
-    return _forward("adain", _lib().dwc_adain, x, True, relu, False, two_pass,
+    return _forward("adain", _lib().dwc_adain, x, _ADAIN, relu, False, two_pass,
                     (scale.data_ptr(), bias.data_ptr(), None), plan)
 
 
@@ -332,12 +346,12 @@ def adain_residual(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
     _check_like("adain_residual", y, x)
     for p in (scale, bias):
         _check_param("adain_residual", y, p, y.shape[:2])
-    return _forward("adain_residual", _lib().dwc_adain, y, True, False, True,
+    return _forward("adain_residual", _lib().dwc_adain, y, _ADAIN, False, True,
                     two_pass, (scale.data_ptr(), bias.data_ptr(), x.data_ptr()), plan)
 
 
 def fwd_trace(fn, x: torch.Tensor, plan: ClusterPlan = None) -> torch.Tensor:
-    """Run `fn()` (one forward of rows 1-3 on x) with the phase trace on: the
+    """Run `fn()` (one forward of rows 1-4 on x) with the phase trace on: the
     card's nanosecond clock at six points of every block, int64 [n, k, 6]
     (start; its slab summed; the block's sums formed; the statistics known;
     its part of y stored; the end).  A diagnostic: synchronises."""
@@ -357,21 +371,16 @@ def fwd_trace(fn, x: torch.Tensor, plan: ClusterPlan = None) -> torch.Tensor:
 
 
 def layer_norm_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                   two_pass: bool = True):
+                   two_pass: bool = True, plan: ClusterPlan = None):
     """Reference LayerNorm: per-sample mean and unbiased std over C*H*W,
-    (x - mean) / (std + eps) * gamma[c] + beta[c].  Returns (y, stats)."""
+    (x - mean) / (std + eps) * gamma[c] + beta[c].  Returns (y, stats),
+    the per-sample statistics at every channel."""
     name = "layer_norm_ref"
     _check_activation(name, x)
     for p in (gamma, beta):
         _check_param(name, x, p, x.shape[1:2])
-    n, hw, c, splits = _geometry(x)
-    y = torch.empty_like(x, memory_format=torch.channels_last)
-    stats = _f32(n, 2, c, like=x)
-    ws = _f32(2 * n * splits * c, like=x)
-    _run(name, _lib().dwc_layer_norm_ref, x.device, x.data_ptr(), gamma.data_ptr(),
-         beta.data_ptr(), y.data_ptr(), stats.data_ptr(), ws.data_ptr(), n, hw, c,
-         splits, _DTYPE_CODE[x.dtype], int(two_pass))
-    return y, stats
+    return _forward(name, _lib().dwc_layer_norm_ref, x, _LN, False, False, two_pass,
+                    (gamma.data_ptr(), beta.data_ptr()), plan)
 
 
 # ------------------------------------------------------------------ backward
@@ -380,13 +389,14 @@ def _check_stats(name: str, x: torch.Tensor, stats: torch.Tensor) -> None:
     _check_param(name, x, stats, (x.shape[0], 2, x.shape[1]))
 
 
-def _bwd_common(name: str, x, g, stats, op: int, relu: bool, check: bool = False):
+def _bwd_common(name: str, x, g, stats, op: int, relu: bool, check: bool = False,
+                plan: ClusterPlan = None):
     """Checks, the plan and its setup; returns (n, hw, c, plan)."""
     _check_activation(name, x)
     _check_like(name, x, g)
     _check_stats(name, x, stats)
     n, c, h, w = x.shape
-    plan = bwd_plan(n, h * w, c, x.dtype)
+    plan = plan or (ln_bwd_plan if op == _LN else bwd_plan)(n, h * w, c, x.dtype)
     bwd_clusters(x.device.index or 0, op, x.dtype, relu, check, c, plan)
     return n, h * w, c, plan
 
@@ -397,7 +407,7 @@ def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
     forward's stats; `relu`: the forward fused a ReLU (its mask is
     recomputed from x and the stats)."""
     name = "instance_norm_bwd"
-    n, hw, c, plan = _bwd_common(name, x, g, stats, 0, relu)
+    n, hw, c, plan = _bwd_common(name, x, g, stats, _IN, relu)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     _run(name, _lib().dwc_instance_norm_bwd, x.device, x.data_ptr(), g.data_ptr(),
          stats.data_ptr(), dx.data_ptr(), None, None, n, hw, c,
@@ -413,7 +423,7 @@ def adain_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
     `residual`: the call is the backward of `adain_residual` (counted
     apart; its x gradient is g itself)."""
     name = "adain_residual_bwd" if residual else "adain_bwd"
-    n, hw, c, plan = _bwd_common(name, x, g, stats, 1, relu)
+    n, hw, c, plan = _bwd_common(name, x, g, stats, _ADAIN, relu)
     _check_param(name, x, scale, x.shape[:2])
     if relu:
         _check_param(name, x, bias, x.shape[:2])
@@ -456,23 +466,35 @@ def relu_mask_mismatches(x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor,
     return int(count.item())
 
 
+@functools.lru_cache(maxsize=None)
+def _ln_counter(device: int) -> torch.Tensor:
+    """The LayerNorm backward's count of finished samples on card `device`:
+    one 32-bit word, zeroed here once; every call leaves it 0 (its last
+    cluster sets it back), also when a CUDA graph replays the call.  Calls
+    on one card must not overlap in time (one stream), as on the training
+    path."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("layer_norm_ref_bwd: call it once before capturing "
+                           "it in a CUDA graph")
+    return torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", device))
+
+
 def layer_norm_ref_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
-                       gamma: torch.Tensor):
+                       gamma: torch.Tensor, plan: ClusterPlan = None):
     """(dx, dgamma, dbeta) of the reference LayerNorm; dgamma and dbeta are
-    summed over the batch."""
+    summed over the batch, in sample order.  `plan`: a layout other than
+    `ln_bwd_plan`'s (a sweep's)."""
     name = "layer_norm_ref_bwd"
-    _check_activation(name, x)
-    _check_like(name, x, g)
-    _check_stats(name, x, stats)
+    n, hw, c, plan = _bwd_common(name, x, g, stats, _LN, False, plan=plan)
     _check_param(name, x, gamma, x.shape[1:2])
-    n, hw, c, splits = _geometry(x)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
-    ws = _f32(2 * n * splits * c + 2 * n * c + 2 * n, like=x)
+    ws = _f32(n, 2, c, like=x)
     dgamma, dbeta = _f32(c, like=x), _f32(c, like=x)
     _run(name, _lib().dwc_layer_norm_ref_bwd, x.device, x.data_ptr(),
          g.data_ptr(), stats.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
-         dgamma.data_ptr(), dbeta.data_ptr(), ws.data_ptr(), n, hw, c, splits,
-         _DTYPE_CODE[x.dtype])
+         dgamma.data_ptr(), dbeta.data_ptr(), ws.data_ptr(),
+         _ln_counter(x.device.index or 0).data_ptr(), n, hw, c,
+         _DTYPE_CODE[x.dtype], plan.k, plan.resident, plan.smem)
     return dx, dgamma, dbeta
 
 

@@ -8,10 +8,11 @@ that machine need not have):
 fp32 within atol 1e-4 (summation order only); bf16 within 2 bf16 ulps of
 the rounded fp32 plain result plus that atol.  Shapes are small and ragged
 (rows not a multiple of a block's row chunk; channel counts 8 to 256); the
-instance-norm and AdaIN kernels, forward and backward, are also held at
-every shape of the flagship serving batch and training step, run twice
-(bit-equal), one CUDA kernel a call, with the backward's recomputed ReLU
-mask counted against the forward's y > 0.
+cluster kernels (the instance norm, AdaIN and the reference LayerNorm,
+forward and backward) are also held at every shape of the flagship serving
+batch and training step, run twice (bit-equal), one CUDA kernel a call,
+with the backward's recomputed ReLU mask counted against the forward's
+y > 0; the LayerNorm also bit-equal across CUDA-graph replays.
 """
 
 import pytest
@@ -270,16 +271,17 @@ def test_cluster_backward_matches_plain(card, shape, op, relu, dtype, stats):
 def test_cluster_backward_is_one_kernel_per_call(card):
     """One call of each backward at a training-step shape launches exactly
     one CUDA kernel (chip_smoke.py's count of the kernel nodes of a CUDA
-    graph of one call); the LayerNorm's backward keeps its four."""
+    graph of one call), the LayerNorm's too, in both dtypes."""
     import chip_smoke
     for op, relu in CLUSTER_OPS:
         _, _, _, g, run = _cluster_case(op, relu, (16, 256, 32, 32), torch.bfloat16,
                                         "1pass", card, 4)
         assert chip_smoke.kernels_per_call(lambda: run(g)) == 1, (op, relu)
-    x, gamma, beta = _args("layer_norm_ref", (2, 64, 8, 8), torch.bfloat16, card, 4)
-    _, st = kernels.layer_norm_ref(x, gamma, beta)
-    assert chip_smoke.kernels_per_call(
-        lambda: kernels.layer_norm_ref_bwd(x, x, st, gamma)) == 4
+    for dtype in (torch.float32, torch.bfloat16):
+        x, gamma, beta = _args("layer_norm_ref", (16, 128, 64, 64), dtype, card, 4)
+        _, st = kernels.layer_norm_ref(x, gamma, beta)
+        assert chip_smoke.kernels_per_call(
+            lambda: kernels.layer_norm_ref_bwd(x, x, st, gamma)) == 1, dtype
 
 
 # the serving batch's shapes of rows 1-3 (chip_smoke.py's SITES), then the
@@ -305,20 +307,20 @@ def test_cluster_forward_matches_plain(card, shape, op, relu, dtype, stats):
 
 
 def test_cluster_forward_is_one_kernel_per_call(card):
-    """One call of each forward of rows 1-3 at a serving and a training
-    shape launches exactly one CUDA kernel; the LayerNorm's forward keeps
-    its split kernels (three in 1pass, five in 2pass)."""
+    """One call of each forward of rows 1-4 at a serving and a training
+    shape launches exactly one CUDA kernel, in both stats modes; the
+    LayerNorm's also in fp32."""
     import chip_smoke
     for shape in ((32, 64, 128, 128), (16, 256, 32, 32)):
-        for op, relu in CLUSTER_OPS:
+        for op, relu in CLUSTER_OPS + [("layer_norm_ref", False)]:
             for stats in ("1pass", "2pass"):
                 args = _args(op, shape, torch.bfloat16, card, 6)
                 assert chip_smoke.kernels_per_call(
                     lambda: _call(KERNEL_CALLS, op, args, relu, stats)) == 1, (op, relu)
-    args = _args("layer_norm_ref", (2, 64, 8, 8), torch.bfloat16, card, 6)
-    for stats, count in (("1pass", 3), ("2pass", 5)):
+    args = _args("layer_norm_ref", (16, 128, 64, 64), torch.float32, card, 6)
+    for stats in ("1pass", "2pass"):
         assert chip_smoke.kernels_per_call(
-            lambda: _call(KERNEL_CALLS, "layer_norm_ref", args, False, stats)) == count
+            lambda: _call(KERNEL_CALLS, "layer_norm_ref", args, False, stats)) == 1
 
 
 def test_cluster_forward_phase_trace(card):
@@ -343,6 +345,8 @@ def test_cluster_forward_refuses_what_its_plan_cannot_take(card):
         kernels.adain(x, s, s)
     with pytest.raises(ValueError, match="plan"):
         kernels.adain_residual(x, x, s, s)
+    with pytest.raises(ValueError, match="plan"):
+        kernels.layer_norm_ref(x, s[0], s[0])
 
 
 def test_cluster_backward_refuses_what_its_plan_cannot_take(card):
@@ -353,6 +357,119 @@ def test_cluster_backward_refuses_what_its_plan_cannot_take(card):
         kernels.instance_norm_bwd(x, x, st)
     with pytest.raises(ValueError, match="plan"):
         kernels.adain_bwd(x, x, st, torch.ones(n, c, device=card))
+    with pytest.raises(ValueError, match="plan"):
+        kernels.layer_norm_ref_bwd(x, x, st, torch.ones(c, device=card))
+
+
+# ------------------------------------- the reference LayerNorm's cluster kernels
+
+# (n, c, h, w, dtype): the LayerNorm's serving sites (batch 32) and training
+# sites (decode at 4n, the cycle at n, n 16), both dtypes; then ragged ones:
+# rows not a multiple of a cluster's blocks, fewer pixels than blocks, one
+# sample, c 8 in bf16 (one 16-byte group) and c 4 in fp32
+LN_SITES = [(32, 128, 64, 64), (32, 64, 128, 128), (64, 128, 64, 64),
+            (64, 64, 128, 128), (16, 128, 64, 64), (16, 64, 128, 128)]
+LN_CASES = [s + (d,) for s in LN_SITES for d in (torch.float32, torch.bfloat16)] + [
+    (1, 8, 7, 9, torch.bfloat16), (2, 8, 33, 3, torch.float32), (3, 4, 5, 7, torch.float32),
+    (2, 16, 1, 5, torch.bfloat16), (1, 64, 13, 11, torch.float32), (5, 256, 5, 7, torch.bfloat16)]
+
+
+def _ln_case(shape, dtype, stats, dev, seed):
+    x, gamma, beta = _args("layer_norm_ref", shape, dtype, dev, seed)
+    g = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                    device=dev).to(dtype).contiguous(memory_format=torch.channels_last)
+    return x, gamma, beta, g
+
+
+@pytest.mark.parametrize("stats", ["2pass", "1pass"])
+@pytest.mark.parametrize("n,c,h,w,dtype", LN_CASES)
+def test_layer_norm_cluster_matches_plain(card, n, c, h, w, dtype, stats):
+    """The LayerNorm's one-launch forward and backward against their plain
+    versions (the forward as `test_kernel_matches_plain`, the backward as
+    `test_cluster_backward_matches_plain`); the statistics per sample at
+    every channel, their mean and factor the plain forward's within 1e-5
+    relative (the mean within 1e-5 where it is near 0); a second run of
+    each bit-equal (y, stats, dx, dgamma, dbeta)."""
+    x, gamma, beta, g = _ln_case((n, c, h, w), dtype, stats, card, 11)
+    two_pass = stats == "2pass"
+    before = dict(kernels.LAUNCHES)
+    y, st = kernels.layer_norm_ref(x, gamma, beta, two_pass=two_pass)
+    y2, st2 = kernels.layer_norm_ref(x, gamma, beta, two_pass=two_pass)
+    grads = kernels.layer_norm_ref_bwd(x, g, st, gamma)
+    grads2 = kernels.layer_norm_ref_bwd(x, g, st, gamma)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["layer_norm_ref"] == before["layer_norm_ref"] + 2
+    assert kernels.LAUNCHES["layer_norm_ref_bwd"] == before["layer_norm_ref_bwd"] + 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    for a, b in zip(grads, grads2):
+        assert torch.equal(a, b)
+    _assert_forward_close("layer_norm_ref", (x, gamma, beta), y, False, stats)
+    assert torch.equal(st, st[:, :, :1].expand_as(st))
+    x32 = x.float()
+    mean = x32.mean(dim=(1, 2, 3))
+    m = c * h * w
+    if stats == "1pass":
+        var = torch.clamp(x32.square().sum(dim=(1, 2, 3)) - m * mean * mean, min=0) / max(m - 1, 1)
+    else:
+        var = (x32 - mean[:, None, None, None]).square().sum(dim=(1, 2, 3)) / max(m - 1, 1)
+    torch.testing.assert_close(st[:, 0, 0], mean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(st[:, 1, 0], 1 / (var.sqrt() + 1e-5), rtol=1e-5, atol=0)
+    want = _plain_grads("layer_norm_ref", (x, gamma, beta), False, stats, y, g)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, w_ in zip(grads, want):
+        scale = float(w_.abs().max())
+        err = float((a.float() - w_.float()).abs().max())
+        assert torch.isfinite(a).all() and err <= rel * scale + 1e-6, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_cluster_is_the_same_across_graph_replays(card, dtype):
+    """Forward and backward captured in one CUDA graph and replayed three
+    times give the eager calls' bits (y, stats, dx, dgamma, dbeta), and an
+    eager call after the replays still does: the backward's count of
+    finished samples is back at 0 after every call."""
+    x, gamma, beta, g = _ln_case((16, 64, 128, 128), dtype, "1pass", card, 12)
+
+    def run():
+        y, st = kernels.layer_norm_ref(x, gamma, beta, two_pass=False)
+        return (y, st) + kernels.layer_norm_ref_bwd(x, g, st, gamma)
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
+    for a, b in zip(run(), eager):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("per_sm,k", [(1, 12), (1, 16), (2, 4), (2, 8)])
+def test_layer_norm_backward_other_plans_match(card, per_sm, k):
+    """The backward under other layouts that `chip_smoke.sweep_ln_plans`
+    tries (12 and 16 blocks: non-portable clusters) gives the default
+    plan's dx within bf16 rounding and its dgamma and dbeta within 1e-5
+    relative."""
+    x, gamma, beta, g = _ln_case((16, 64, 128, 128), torch.bfloat16, "1pass", card, 13)
+    _, st = kernels.layer_norm_ref(x, gamma, beta, two_pass=False)
+    want = kernels.layer_norm_ref_bwd(x, g, st, gamma)
+    plan = kernels.ln_bwd_plan(16, 128 * 128, 64, torch.bfloat16, per_sm=per_sm, k=k)
+    got = kernels.layer_norm_ref_bwd(x, g, st, gamma, plan=plan)
+    torch.cuda.synchronize()
+    assert plan.k == k
+    assert float((got[0].float() - want[0].float()).abs().max()) <= 2e-2 * float(
+        want[0].float().abs().max())
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
 
 
 # ------------------------------------------------------------------ the stem
