@@ -80,7 +80,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    side by side;
 11. the bf16 text encoder (`encode_txt`, batch 32) on the card against the
    CPU's, which rounds as the JAX scan does: within a quarter of the
-   encoder's fp32-vs-bf16 gap; cuDNN's fused bf16 LSTM measured beside it.
+   encoder's fp32-vs-bf16 gap; cuDNN's fused bf16 LSTM measured beside it;
+12. the training CLI end to end: `cli/train.py`'s `main` in this process on
+   the flagship config (a copy with `log_iter` 1, `image_display_iter` 3,
+   `image_save_iter` 6, `snapshot_save_iter` 3) and `--procedural_data
+   --procedural_size 512`, 6 steps: exact launches (each step phase 7's,
+   and 4 sample grids of one encode and three decodes each), 6 finite
+   metric rows, checkpoints 3 and 6, the `train_current`, `test_00000006`
+   and `train_00000006` grids (5 rows of 8) and `index.html`; step 3's
+   checkpoint restored into a fresh trainer bit-equal, tensor by tensor,
+   to the run's state after step 3; steps 4-6 run again by `--resume 1`
+   from that file, and the whole run once more: the resumed run's mean
+   relative metric difference from the run (over every metric of steps
+   4-6) no larger than the second run's (the card's reflect-pad backward
+   adds with atomics); step 6's EMA generator served (batch 32, finite, in
+   [-1, 1]) through `cli/translate.py`'s checkpoint loader, and its grid
+   rows finite; the step's CUDA-event time with the real feed beside phase
+   7's, the feed's host ms per batch, and the checkpoint's size and save
+   and restore seconds.
 
 The last lines are the `kernels` JSON (nine kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
@@ -107,23 +124,34 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dwcgan_tpu_torch.cli import train as train_cli
 from dwcgan_tpu_torch.cli.train import (build_trainer, build_vgg_loss,
                                         synthetic_batches)
-from dwcgan_tpu_torch.cli.translate import synthetic_requests, translate_batch
+from dwcgan_tpu_torch.cli.translate import (load_checkpoint, synthetic_requests,
+                                            translate_batch)
 from dwcgan_tpu_torch.config import load_config
+from dwcgan_tpu_torch.data.pipeline import DataPipeline, to_device
+from dwcgan_tpu_torch.data.procedural import ProceduralFaceDataset
 from dwcgan_tpu_torch.models.generator import build_generator
 from dwcgan_tpu_torch.ops import norms, stem
 from dwcgan_tpu_torch.ops.cuda import build, kernels
 from dwcgan_tpu_torch.text.vocab import Vocab, encode_commands
-from dwcgan_tpu_torch.train.sampler import make_infer_fn
+from dwcgan_tpu_torch.train.checkpoint import (CheckpointManager,
+                                               checkpoint_header, checkpoint_steps)
+from dwcgan_tpu_torch.train.sampler import make_infer_fn, make_sample_fn
 from dwcgan_tpu_torch.train.step import make_train_step
 
 ROOT = Path(__file__).resolve().parent
@@ -1322,6 +1350,279 @@ def phase_txt_bf16(vocab):
     return err, err_fused, gap
 
 
+# ---------------------------------------------------------------- phase 12
+
+CLI_STEPS = 6
+# the loop's cadences of the 6-step run, set in a copy of the config
+CLI_CADENCE = {"log_iter": 1, "image_display_iter": 3, "image_save_iter": 6,
+               "snapshot_save_iter": 3}
+CLI_PROCEDURAL = 512          # --procedural_size
+CLI_NAME = CONFIG.stem        # the run's name: outputs/<name>, logs/<name>
+CLI_GRIDS = ("train_current", "test_00000006", "train_00000006")
+CLI_RENDERS = 4               # train_current at steps 3 and 6, test and train at 6
+# one grid's forward launches: one encode (the content encoder's 11 instance
+# norms) and three decodes (4 + 4 AdaIN, 2 LayerNorms each)
+RENDER_LAUNCHES = {**{k: 0 for k in kernels.LAUNCHES}, "instance_norm": 11,
+                   "adain": 12, "adain_residual": 12, "layer_norm_ref": 6}
+CLI_NOT_METRICS = {"step", "time", "steps_per_sec", "images_per_sec"}
+
+
+def state_tensors(state) -> dict:
+    """A copy of every tensor of a training state by name (the optimizers'
+    by parameter position): the nets, the EMA copies, Adam's moments and
+    counts, the step and the step's random generator."""
+    out = {"step": torch.tensor(state.step), "rng": state.rng.get_state()}
+    for name in ("gen", "dis", "ema_gen", "ema_dis"):
+        for k, v in getattr(state, name).state_dict().items():
+            out[f"{name}.{k}"] = v.detach().clone()
+    for name in ("gen_opt", "dis_opt"):
+        for i, st in getattr(state, name).state_dict()["state"].items():
+            for k, v in st.items():
+                out[f"{name}.{i}.{k}"] = v.detach().clone()
+    return out
+
+
+class StepProbe:
+    """Wraps the training CLI's step (through its `make_train_step`): the
+    kernel launches, CUDA-event times and host start time of each step, and
+    a copy of the state after step `keep`."""
+
+    def __init__(self, keep=None):
+        self.keep, self.kept = keep, None
+        self.launches, self.events, self.starts = [], [], []
+
+    def __enter__(self):
+        self._real = train_cli.make_train_step
+
+        def make(*args, **kw):
+            step = self._real(*args, **kw)
+
+            def probed(state, batch, **kw2):
+                before = dict(kernels.LAUNCHES)
+                self.starts.append(time.perf_counter())
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                m = step(state, batch, **kw2)
+                stop.record()
+                self.events.append((start, stop))
+                self.launches.append({k: kernels.LAUNCHES[k] - before[k] for k in before})
+                if state.step == self.keep:
+                    self.kept = state_tensors(state)
+                return m
+
+            return probed
+
+        train_cli.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        train_cli.make_train_step = self._real
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def cli_config(tmp: Path) -> str:
+    """A copy of the flagship config, under its own name, with the 6-step
+    run's cadences."""
+    text = CONFIG.read_text()
+    for key, val in CLI_CADENCE.items():
+        text, n = re.subn(rf"^{key}:.*$", f"{key}: {val}", text, flags=re.M)
+        if n != 1:
+            raise AssertionError(f"{key} is not set once in {CONFIG}")
+    path = tmp / CONFIG.name
+    path.write_text(text)
+    return str(path)
+
+
+def run_cli(cfg_path: str, out: Path, *extra, keep=None):
+    """`cli/train.py`'s main in this process: procedural data, 6 steps.
+    Returns (state, metric rows, probe, seconds)."""
+    with StepProbe(keep) as probe:
+        t0 = time.perf_counter()
+        state, _ = train_cli.main(
+            ["--config", cfg_path, "--procedural_data", "--procedural_size",
+             str(CLI_PROCEDURAL), "--output_path", str(out), "--max_steps",
+             str(CLI_STEPS), *extra])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    with open(out / "logs" / CLI_NAME / "metrics.jsonl") as f:
+        rows = [json.loads(ln) for ln in f]
+    return state, rows, probe, secs
+
+
+def metric_diff(rows_a, rows_b):
+    """The relative differences of every logged metric (the step and the
+    wall-clock fields aside) between two runs' rows of the same steps: (their mean, their
+    largest, its metric and step).  The mean is what phase 12 compares: the
+    largest is one noisy metric (the gradient norm's) at one step, and
+    ranks two runs by chance."""
+    if [r["step"] for r in rows_a] != [r["step"] for r in rows_b]:
+        raise AssertionError(f"steps {[r['step'] for r in rows_a]} against "
+                             f"{[r['step'] for r in rows_b]}")
+    rel = [(abs(a[k] - b[k]) / max(abs(a[k]), 1e-6), k, a["step"])
+           for a, b in zip(rows_a, rows_b) for k in a if k not in CLI_NOT_METRICS]
+    return (sum(r[0] for r in rel) / len(rel), *max(rel))
+
+
+def load_grid(images: Path, tag: str):
+    """A saved grid: the `.jpg` where PIL wrote it, else the `.jpg.npy`."""
+    npy = images / f"{tag}.jpg.npy"
+    if npy.exists():
+        return np.load(npy)
+    from PIL import Image
+    with Image.open(images / f"{tag}.jpg") as im:
+        return np.asarray(im)
+
+
+def feed_ms(cfg, dev, batches: int = 4):
+    """Host ms per batch of the run's feed, on one thread: building a batch
+    of fresh procedural faces (`DataPipeline._collate`, as a worker does)
+    and `to_device` (pinned copy, non_blocking, then a sync)."""
+    ds = ProceduralFaceDataset(n_samples=CLI_PROCEDURAL, image_size=cfg.image_size,
+                               seed=cfg.seed, max_text_len=cfg.max_text_len,
+                               dataset=cfg.dataset)
+    pipe = DataPipeline(ds, cfg.batch_size, seed=cfg.seed)
+    stream = pipe._index_stream()
+    build_s, copy_s = [], []
+    for _ in range(batches):
+        epoch, idxs = next(stream)
+        t0 = time.perf_counter()
+        b = pipe._collate(idxs, epoch)
+        t1 = time.perf_counter()
+        to_device(b, dev)
+        torch.cuda.synchronize()
+        build_s.append(t1 - t0)
+        copy_s.append(time.perf_counter() - t1)
+    return 1e3 * sum(build_s) / batches, 1e3 * sum(copy_s) / batches
+
+
+def phase_train_cli(card, train_off):
+    """Phase 12: `cli/train.py` end to end on the card (module docstring).
+    `train_off`: phase 7's timing, printed beside this run's."""
+    dev = torch.device("cuda")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        cfg_path = cli_config(tmp)
+        cfg = load_config(cfg_path)
+        vocab = Vocab(cfg.dataset)
+
+        # the run, 6 steps, the state after step 3 kept in memory
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        state_a, rows_a, probe_a, secs_a = run_cli(cfg_path, tmp / "a", keep=3)
+        launches = dict(kernels.LAUNCHES)
+        want = {k: CLI_STEPS * EXPECTED_TRAIN_LAUNCHES[k] + CLI_RENDERS * RENDER_LAUNCHES[k]
+                for k in kernels.LAUNCHES}
+        if launches != want or any(l != EXPECTED_TRAIN_LAUNCHES for l in probe_a.launches):
+            raise AssertionError(f"launches {launches} != {want}; per step "
+                                 f"{probe_a.launches}")
+        out = tmp / "a" / "outputs" / CLI_NAME
+        if [r["step"] for r in rows_a] != list(range(1, CLI_STEPS + 1)) or not all(
+                math.isfinite(v) for r in rows_a for v in r.values()):
+            raise AssertionError(f"metric rows {rows_a}")
+        if checkpoint_steps(str(out / "checkpoints")) != [3, 6]:
+            raise AssertionError(f"checkpoints {os.listdir(out / 'checkpoints')}")
+        grid_shape = (5 * cfg.image_size, cfg.display_size * cfg.image_size, 3)
+        for tag in CLI_GRIDS:
+            grid = load_grid(out / "images", tag)
+            if tuple(grid.shape) != grid_shape or int(grid.max()) == int(grid.min()):
+                raise AssertionError(f"grid {tag}: shape {tuple(grid.shape)}, "
+                                     f"range {int(grid.min())}..{int(grid.max())}")
+        if not (out / "index.html").exists():
+            raise AssertionError("no index.html")
+        step_ms = probe_a.step_ms()[1:]                    # steps 2-6
+        loop_ms = [1e3 * (b - a) for a, b in zip(probe_a.starts, probe_a.starts[1:])]
+
+        # (a) step 3's checkpoint restored into a fresh trainer: bit-equal
+        fresh = build_trainer(cfg, dev)[0]
+        mgr = CheckpointManager(str(out / "checkpoints"),
+                                header=checkpoint_header(cfg, vocab.size, CLI_NAME))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.restore(fresh, step=3)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = state_tensors(fresh)
+        bad = [k for k, v in probe_a.kept.items()
+               if not (v.dtype == got[k].dtype and v.device == got[k].device
+                       and torch.equal(v, got[k]))]
+        if got.keys() != probe_a.kept.keys() or bad:
+            raise AssertionError(f"restored state differs from step 3's: {bad[:8]}")
+        n_tensors = len(got)
+        del fresh, got
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved = CheckpointManager(str(tmp / "timed")).save(state_a)
+        save_s = time.perf_counter() - t0
+        mib = os.path.getsize(saved) / 2**20
+        os.remove(saved)
+        del state_a
+
+        # (b) steps 4-6 resumed from step 3's file; (c) the run again
+        ckpts_b = tmp / "b" / "outputs" / CLI_NAME / "checkpoints"
+        ckpts_b.mkdir(parents=True)
+        shutil.copy(out / "checkpoints" / "ckpt_00000003.pt", ckpts_b)
+        rows_b = run_cli(cfg_path, tmp / "b", "--resume", "1")[1]
+        rows_c = run_cli(cfg_path, tmp / "c")[1]
+        shutil.rmtree(tmp / "c")
+        resumed, *resumed_max = metric_diff(rows_a[3:], rows_b)
+        repeat, *repeat_max = metric_diff(rows_a[3:], rows_c[3:])
+        if not resumed <= repeat:
+            raise AssertionError(f"resumed run {resumed} from the run, beyond "
+                                 f"the run's own repeat {repeat}")
+
+        # serve the EMA generator of step 6's checkpoint
+        gen = build_generator(cfg, vocab.size, device=dev)
+        step = load_checkpoint(gen, cfg, vocab.size, str(out / "checkpoints"))
+        imgs, cmds = synthetic_requests(BATCH, cfg.image_size, SEED + 3)
+        y = translate_batch(make_infer_fn(cfg, gen), imgs, cmds, vocab,
+                            cfg.max_text_len, dev)
+        if step != CLI_STEPS or tuple(y.shape) != (BATCH, cfg.image_size, cfg.image_size, 3) \
+                or not torch.isfinite(y).all() or float(y.abs().max()) > 1.0:
+            raise AssertionError(f"served step {step}: shape {tuple(y.shape)}, "
+                                 f"max |y| {float(y.abs().max())}")
+        n = cfg.display_size
+        ids, lens = encode_commands(cmds[:n], vocab, cfg.max_text_len)
+        rows = make_sample_fn(cfg, gen)(
+            torch.from_numpy(imgs[:n]).to(dev), torch.from_numpy(ids).to(dev),
+            torch.from_numpy(lens), True,
+            generator=torch.Generator(dev).manual_seed(0))
+        if len(rows) != 5 or not all(torch.isfinite(r).all() for r in rows):
+            raise AssertionError("the grid's rows of the served checkpoint")
+    build_ms, copy_ms = feed_ms(cfg, dev)
+    med = lambda v: sorted(v)[len(v) // 2]
+    result = dict(step_ms=med(step_ms), step_ms_min=min(step_ms),
+                  step_ms_max=max(step_ms), phase7_step_ms=train_off["median_ms"],
+                  loop_ms=med(loop_ms[1:]), run_s=secs_a, feed_build_ms=build_ms,
+                  feed_to_device_ms=copy_ms, ckpt_mib=mib, ckpt_save_s=save_s,
+                  ckpt_restore_s=restore_s, resumed_diff=resumed, repeat_diff=repeat)
+    log(f"train_cli: {CLI_STEPS} steps of {cfg_path.split('/')[-1]} ({cfg.compute_dtype}, "
+        f"batch {cfg.batch_size}, {cfg.image_size} px) through cli/train.py on "
+        f"--procedural_data {CLI_PROCEDURAL}: launches {launches} (per step "
+        f"{EXPECTED_TRAIN_LAUNCHES}, per grid {RENDER_LAUNCHES}); 6 metric rows, "
+        f"checkpoints 3 and 6, grids {CLI_GRIDS} and index.html; step 3 restored "
+        f"into a fresh trainer bit-equal in all {n_tensors} tensors; steps 4-6 "
+        f"resumed vs the run: mean relative metric diff {resumed:.3e} (largest "
+        f"{resumed_max[0]:.3e}, {resumed_max[1]} at step {resumed_max[2]}), a second "
+        f"uninterrupted run vs the run {repeat:.3e} (largest {repeat_max[0]:.3e}, "
+        f"{repeat_max[1]} at step {repeat_max[2]}); step {step}'s EMA generator "
+        f"served {BATCH} images finite in [-1, 1]")
+    log(f"train_cli: CUDA-event ms per step, steps 2-6 with the real feed: median "
+        f"{result['step_ms']:.3f} (min {result['step_ms_min']:.3f}, max "
+        f"{result['step_ms_max']:.3f}); phase 7 (batches already on the card) "
+        f"{result['phase7_step_ms']:.3f}; host ms from one step's start to the "
+        f"next's, steps 2-5 (step 3's grid and snapshot inside one), median "
+        f"{result['loop_ms']:.3f}; "
+        f"the run {secs_a:.1f} s with the model's build; feed host ms per batch "
+        f"(one thread): build {build_ms:.3f}, to_device {copy_ms:.3f}; checkpoint "
+        f"{mib:.1f} MiB, save {save_s:.3f} s, restore {restore_s:.3f} s; card {card}")
+    return result
+
+
 # ---------------------------------------------------------------- phases 3, 4
 
 def phase_slice_fp32(vocab, stem=False):
@@ -1448,6 +1749,7 @@ def main() -> int:
     phase_step_fp32(stem=True)
     stem_train_launches, train_on = phase_train_bf16(card, stem=True)
     phase_txt_bf16(vocab)
+    phase_train_cli(card, train_off)
     log("stem_on_vs_off (phases 9-10 against 4 and 7 of this run): serving "
         + json.dumps({"on": serve_on, "off": serve_off}) + "; training "
         + json.dumps({"on": train_on, "off": train_off}))

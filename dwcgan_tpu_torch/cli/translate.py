@@ -1,15 +1,19 @@
 """Batch inference CLI: apply text commands to images, on the card.
 
     python -m dwcgan_tpu_torch.cli.translate --config configs/celeba_faces.yaml \
-        --weights gen_params.npz --list edits.tsv --image_dir ./images \
-        --out_dir ./edited
+        --checkpoint OUT/outputs/celeba_faces/checkpoints \
+        --list edits.tsv --image_dir ./images --out_dir ./edited
 
-The counterpart of `dwcgan_tpu/cli/translate.py`, with the same flags except
-the weights: `--weights` is a `.npz` of the JAX generator's parameters,
-flattened with "/" (e.g. `enc_style/Conv2dBlock_0/Conv_0/kernel`), in place
-of an Orbax checkpoint directory (`--checkpoint`, `--step`, `--use_ema`):
-reading Orbax needs JAX, so export the parameter set to serve (EMA or not)
-with `np.savez(path, **flat_params)`.
+The counterpart of `dwcgan_tpu/cli/translate.py`, with the same flags.
+The weights come from exactly one of:
+
+- `--checkpoint`: a checkpoint directory of the port's training CLI, or
+  one of its files; `--step` picks a step (default: the latest), and
+  `--use_ema 1` (the default) serves the EMA generator;
+- `--weights`: a `.npz` of a JAX generator's parameters, flattened with
+  "/" (e.g. `enc_style/Conv2dBlock_0/Conv_0/kernel`): export the set to
+  serve from a JAX run with `np.savez(path, **flat_params)` (reading
+  Orbax needs JAX).
 
 `edits.tsv`: one "image<TAB>command" per line.  One output per line, named
 `{line_index:06d}_{basename}`.  Runs on the card unless `--device cpu`.
@@ -20,7 +24,7 @@ from __future__ import annotations
 import argparse
 import os
 import random
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +37,9 @@ from dwcgan_tpu_torch.interop.jax_params import load_jax_params
 from dwcgan_tpu_torch.models.generator import build_generator
 from dwcgan_tpu_torch.text.synthesis import TextSynthesizer
 from dwcgan_tpu_torch.text.vocab import Vocab, encode_commands
+from dwcgan_tpu_torch.train.checkpoint import (checkpoint_file,
+                                               checkpoint_header,
+                                               read_checkpoint)
 from dwcgan_tpu_torch.train.sampler import make_infer_fn
 
 
@@ -98,12 +105,33 @@ def load_weights(gen, path: str) -> None:
         load_jax_params(gen, {k: z[k] for k in z.files})
 
 
+def load_checkpoint(gen, cfg, vocab_size: int, path: str,
+                    step: Optional[int] = None, use_ema: bool = True) -> int:
+    """Load the generator (the EMA copy with `use_ema`) of a training
+    checkpoint (directory or file; `step` default the latest) into `gen`,
+    on its device; returns the checkpoint's step.  Refuses a checkpoint of
+    another vocabulary or compute dtype."""
+    dev = next(gen.parameters()).device
+    ckpt = read_checkpoint(checkpoint_file(path, step), map_location=dev,
+                           header=checkpoint_header(cfg, vocab_size))
+    gen.load_state_dict(ckpt["ema_gen" if use_ema else "gen"])
+    return ckpt["step"]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", default="configs/celeba_faces.yaml")
-    p.add_argument("--weights", required=True,
-                   help=".npz of the JAX generator's parameters, keys "
-                        "flattened with '/'")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint",
+                     help="checkpoint directory of the port's training CLI, "
+                          "or one checkpoint file")
+    src.add_argument("--weights",
+                     help=".npz of a JAX generator's parameters, keys "
+                          "flattened with '/'")
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step to load (default: the latest)")
+    p.add_argument("--use_ema", type=int, default=1,
+                   help="1: serve the checkpoint's EMA generator")
     p.add_argument("--list", required=True, help="TSV: image<TAB>command")
     p.add_argument("--image_dir", required=True)
     p.add_argument("--out_dir", required=True)
@@ -117,8 +145,13 @@ def main(argv=None):
     cfg = load_config(args.config)
     vocab = Vocab(cfg.dataset)
     gen = build_generator(cfg, vocab.size, device=device)
-    load_weights(gen, args.weights)
-    print(f"loaded weights from {args.weights}", flush=True)
+    if args.checkpoint:
+        step = load_checkpoint(gen, cfg, vocab.size, args.checkpoint,
+                               args.step, bool(args.use_ema))
+        print(f"loaded checkpoint step {step} from {args.checkpoint}", flush=True)
+    else:
+        load_weights(gen, args.weights)
+        print(f"loaded weights from {args.weights}", flush=True)
     infer = make_infer_fn(cfg, gen)
 
     pairs = read_src2trg(args.list)

@@ -42,6 +42,26 @@ from dwcgan_tpu_torch.ops.norms import check_stats
 from dwcgan_tpu_torch.ops.resize import upsample2x
 
 
+def build_embedding_matrix(vocab, embed_dim: int, pretrained=None,
+                           seed: int = 0) -> np.ndarray:
+    """The word-embedding table [vocab.size, embed_dim] float32, as
+    `dwcgan_tpu/models/generator.py::build_embedding_matrix`
+    (networks_v2.py:186-194): the pretrained vector where the dict
+    `pretrained` has the word, N(0, 0.6) rows for the others; with no dict
+    at all, N(0, 1) rows throughout."""
+    rng = np.random.default_rng(seed)
+    if pretrained is None:
+        return rng.normal(0.0, 1.0, (vocab.size, embed_dim)).astype(np.float32)
+    table = np.zeros((vocab.size, embed_dim), dtype=np.float32)
+    for i, word in enumerate(vocab.itos):
+        vec = pretrained.get(word)
+        if vec is not None:
+            table[i] = np.asarray(vec, dtype=np.float32)
+        else:
+            table[i] = rng.normal(scale=0.6, size=(embed_dim,))
+    return table
+
+
 def _fused_linear(x, linears):
     """The per-attribute Linear heads on one input, as one `linear` (one
     flax `Dense` of num_cls * c_dim outputs in the JAX model)."""

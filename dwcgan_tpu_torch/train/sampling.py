@@ -1,5 +1,5 @@
-"""Style sampling and attention blending (the counterparts of
-`dwcgan_tpu/train/sampling.py:14-26, 44-57`)."""
+"""Style sampling, attention blending and style replacement (the
+counterparts of `dwcgan_tpu/train/sampling.py:14-26, 44-72`)."""
 
 from __future__ import annotations
 
@@ -33,3 +33,16 @@ def blend_attention(img, att, x_real, att_on: bool = True):
         return img.float()
     att = att.float()
     return img.float() * att + x_real.float() * (1.0 - att)
+
+
+def style_replace(c_src: torch.Tensor, c_trg: torch.Tensor,
+                  z_src: torch.Tensor, z_trg: torch.Tensor,
+                  c_dim: int) -> torch.Tensor:
+    """Keep the source style for attributes the command leaves unchanged:
+    where c_src[n, k] == c_trg[n, k], z_trg's k-th c_dim block becomes
+    z_src's (solver.py:134-140).  z_*: [N, K * c_dim] flat styles."""
+    n = c_src.shape[0]
+    keep = (c_src == c_trg)[:, :, None]
+    zs = z_src.reshape(n, -1, c_dim)
+    zt = z_trg.reshape(n, -1, c_dim)
+    return torch.where(keep, zs, zt).reshape(z_trg.shape)

@@ -615,3 +615,21 @@ def test_stem_wrappers_refuse_what_they_do_not_take(card):
             memory_format=torch.channels_last), w2p)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.stem_conv7(x.cpu(), w2p)
+
+
+def test_to_device_goes_through_pinned_memory(card):
+    """The training feed's copy to the card: pinned host tensors, copied
+    `non_blocking`; the lengths stay on the host."""
+    import numpy as np
+
+    from dwcgan_tpu_torch.data.pipeline import Batch, pin_batch, to_device
+    b = Batch(np.ones((2, 4, 4, 3), np.float32), np.zeros((2, 8), np.float32),
+              np.ones((2, 8), np.float32), np.ones((2, 6), np.int32),
+              np.full((2,), 3, np.int32))
+    pinned = pin_batch(b)
+    assert all(t.is_pinned() for t in pinned[:4]) and not pinned.txt_len.is_pinned()
+    t = to_device(b, card)
+    torch.cuda.synchronize()
+    assert all(x.is_cuda for x in t[:4]) and t.txt_len.device.type == "cpu"
+    for x, y in zip(t, b):
+        np.testing.assert_array_equal(x.cpu().numpy(), np.asarray(y))

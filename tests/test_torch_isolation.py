@@ -56,6 +56,21 @@ def test_no_import_statement_names_jax_or_the_jax_package(path):
             f"{path}:{node.lineno} imports {names}"
 
 
+# the modules of the training CLI's slice, which the scans above must reach
+TRAINING_CLI_MODULES = (
+    "data/drawkey.py", "data/procedural.py", "data/celeba.py", "data/pipeline.py",
+    "utils/guard.py", "utils/logging.py", "utils/images.py", "utils/html.py",
+    "utils/timer.py", "train/sampling.py", "train/sampler.py",
+    "models/generator.py", "train/checkpoint.py", "cli/train.py",
+    "cli/translate.py")
+
+
+def test_the_scans_cover_the_training_cli_modules():
+    scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert set(TRAINING_CLI_MODULES) <= scanned
+    assert (PACKAGE / "utils" / "__init__.py").exists()   # walk_packages finds utils/
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -99,6 +114,25 @@ def test_translate_cli_defaults_to_the_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         translate.main(["--config", str(ROOT / "configs/smoke.yaml"),
                         "--weights", str(tmp_path / "w.npz"),
+                        "--list", str(tmp_path / "l.tsv"),
+                        "--image_dir", str(tmp_path),
+                        "--out_dir", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
+def test_train_cli_on_procedural_data_defaults_to_the_card(no_card, tmp_path):
+    from dwcgan_tpu_torch.cli import train
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--config", str(ROOT / "configs/smoke.yaml"), "--procedural_data",
+                    "--output_path", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
+
+
+def test_translate_checkpoint_defaults_to_the_card(no_card, tmp_path):
+    from dwcgan_tpu_torch.cli import translate
+    with pytest.raises(RuntimeError, match="cuda"):
+        translate.main(["--config", str(ROOT / "configs/smoke.yaml"),
+                        "--checkpoint", str(tmp_path / "checkpoints"),
                         "--list", str(tmp_path / "l.tsv"),
                         "--image_dir", str(tmp_path),
                         "--out_dir", str(tmp_path / "out")])
