@@ -97,7 +97,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    [-1, 1]) through `cli/translate.py`'s checkpoint loader, and its grid
    rows finite; the step's CUDA-event time with the real feed beside phase
    7's, the feed's host ms per batch, and the checkpoint's size and save
-   and restore seconds.
+   and restore seconds;
+13. evaluation (FID/IS) and the reference import on the flagship config in
+   bf16: the port's seeded generator and discriminator state, with a
+   nonzero LSTM `bias_hh`, written as the reference saves them (`{'a':
+   ...}`, `{'b': ...}`), imported by `cli/import_reference.py` and the EMA
+   generator loaded back by `cli/evaluate.py`'s loader: every tensor
+   bit-equal to the folded state (`bias_ih + bias_hh`, `bias_hh` 0); 512
+   procedural faces with synthesized commands through the harness's
+   per-batch call (`harness.fake_batch`, batch 32): exactly 11 / 4 / 4 / 2
+   launches of rows 1-4 in each batch and no other, fakes finite in [-1,
+   1]; a random-init InceptionV3 (seed 0) at full width, 4 images card vs
+   CPU within 1e-3 of the largest feature and logit (fp32, TF32 off), and
+   the same weights through a torchvision-layout `.pth`,
+   `convert_inception` and `load_converted` bit-equal on the card; FID
+   and IS of real set A (512 faces) against the fakes and against a
+   second real set B: finite, FID(A, B) < FID(A, fakes), IS in [1, 1000];
+   generation and InceptionV3 images/s, the host seconds of the
+   statistics, peak memory and the phase's wall time, each beside the
+   card's name and power limit.  The card's machine has no PIL, so the
+   phase feeds the harness arrays; the file-reading paths are the CPU
+   tests'.
 
 The last lines are the `kernels` JSON (nine kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
@@ -121,10 +141,12 @@ its time in its blocks (the card's clock at six points of the kernel).
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import json
 import math
 import os
+import random
 import re
 import shutil
 import subprocess
@@ -137,6 +159,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dwcgan_tpu_torch.cli import convert_inception, evaluate, import_reference
 from dwcgan_tpu_torch.cli import train as train_cli
 from dwcgan_tpu_torch.cli.train import (build_trainer, build_vgg_loss,
                                         synthetic_batches)
@@ -145,9 +168,16 @@ from dwcgan_tpu_torch.cli.translate import (load_checkpoint, synthetic_requests,
 from dwcgan_tpu_torch.config import load_config
 from dwcgan_tpu_torch.data.pipeline import DataPipeline, to_device
 from dwcgan_tpu_torch.data.procedural import ProceduralFaceDataset
+from dwcgan_tpu_torch.eval import harness
+from dwcgan_tpu_torch.eval.inception import (InceptionV3, fp32_precision,
+                                             init_random_inception,
+                                             preprocess_for_inception)
+from dwcgan_tpu_torch.eval.metrics import feature_stats, fid_from_stats
+from dwcgan_tpu_torch.models.discriminator import build_discriminator
 from dwcgan_tpu_torch.models.generator import build_generator
 from dwcgan_tpu_torch.ops import norms, stem
 from dwcgan_tpu_torch.ops.cuda import build, kernels
+from dwcgan_tpu_torch.text.synthesis import TextSynthesizer
 from dwcgan_tpu_torch.text.vocab import Vocab, encode_commands
 from dwcgan_tpu_torch.train.checkpoint import (CheckpointManager,
                                                checkpoint_header, checkpoint_steps)
@@ -1623,6 +1653,218 @@ def phase_train_cli(card, train_off):
     return result
 
 
+# ---------------------------------------------------------------- phase 13
+
+EVAL_FACES = 512                # each of: the fakes' sources, real sets A and B
+EVAL_SEEDS = {"sources": SEED + 30, "real_a": SEED + 31, "real_b": SEED + 32}
+EVAL_STEP = 7                   # the imported checkpoint's step
+IV3_CHECK = 4                   # images of the card-vs-CPU feature check
+IV3_REL = 1e-3                  # card vs CPU, of the largest feature / logit
+
+
+def procedural_faces(cfg, n: int, seed: int):
+    """n procedural faces [n, H, W, 3] in [-1, 1], and for each a command
+    synthesized from its labels to those of a random face of the set."""
+    ds = ProceduralFaceDataset(n_samples=n, image_size=cfg.image_size, seed=seed,
+                               max_text_len=cfg.max_text_len, dataset=cfg.dataset,
+                               cache=False)
+    rng = random.Random(seed)
+    synth = TextSynthesizer(rng)
+    cmds = [synth(ds.labels[i], ds.labels[rng.randrange(n)]) for i in range(n)]
+    return np.stack([ds.render(i) for i in range(n)]), cmds
+
+
+def host_state(module) -> dict:
+    """A copy of a module's state on the host, as a checkpoint holds it."""
+    return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+
+
+def torchvision_inception_pth(model, path: Path) -> None:
+    """`model`'s weights as torchvision ships them: its names, plus every
+    BN's `num_batches_tracked` and the `AuxLogits` head's tensors."""
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    for k in [k for k in sd if k.endswith(".bn.running_var")]:
+        sd[k.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
+    sd["AuxLogits.conv0.conv.weight"] = torch.zeros(128, 768, 1, 1)
+    sd["AuxLogits.conv0.bn.running_var"] = torch.ones(128)
+    sd["AuxLogits.fc.weight"] = torch.zeros(1000, 768)
+    torch.save(sd, path)
+
+
+FP32_FLOPS_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores (data sheet)
+
+
+def conv_fc_flops(model, x) -> int:
+    """Multiply-add operations (2 each) of `model`'s convolutions and
+    Linear layers on `x`, counted from their output shapes by hooks."""
+    total = [0]
+
+    def count(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+        else:
+            k = mod.in_features
+        total[0] += 2 * k * out.numel()
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def phase_eval(card):
+    """Phase 13: the reference import and FID/IS evaluation on the card
+    (module docstring)."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = load_config(str(CONFIG))
+    vocab = Vocab(cfg.dataset)
+    torch.cuda.reset_peak_memory_stats()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        # the reference import, then the evaluation loader
+        gen_sd = host_state(build_generator(cfg, vocab.size, device=dev, seed=SEED))
+        dis_sd = host_state(build_discriminator(cfg, device=dev, seed=SEED + 1))
+        g = torch.Generator().manual_seed(SEED + 33)
+        for k in [k for k in gen_sd if "bias_hh" in k]:   # zero in the port
+            gen_sd[k] = 0.1 * torch.randn(gen_sd[k].shape, generator=g)
+        torch.save({"a": gen_sd}, tmp / "gen.pt")
+        torch.save({"b": dis_sd}, tmp / "dis.pt")
+        ckpt = import_reference.main(
+            ["--config", str(CONFIG), "--gen_pt", str(tmp / "gen.pt"), "--dis_pt",
+             str(tmp / "dis.pt"), "--out", str(tmp / "ckpt"), "--step", str(EVAL_STEP)])
+        gen, step = evaluate.load_generator(cfg, vocab.size, str(tmp / "ckpt"), True, dev)
+        want = dict(gen_sd)                   # the fold: bias_ih + bias_hh, bias_hh 0
+        for k in [k for k in gen_sd if "bias_hh" in k]:
+            ih = k.replace("bias_hh", "bias_ih")
+            want[ih], want[k] = gen_sd[ih] + gen_sd[k], torch.zeros_like(gen_sd[k])
+        got = host_state(gen)
+        saved_dis = torch.load(ckpt, map_location="cpu", weights_only=True)["ema_dis"]
+        bad = [k for k in want if not (k in got and got[k].dtype == torch.float32
+                                       and torch.equal(got[k], want[k]))]
+        bad += [k for k in dis_sd if not torch.equal(saved_dis[k], dis_sd[k])]
+        if step != EVAL_STEP or got.keys() != want.keys() or bad:
+            raise AssertionError(f"imported step {step}, tensors that differ {bad[:8]}")
+        n_gen_tensors = len(got)
+
+        # the fakes: the harness's per-batch call, rows 1-4 on the card
+        t0 = time.perf_counter()
+        sources, cmds = procedural_faces(cfg, EVAL_FACES, EVAL_SEEDS["sources"])
+        real_a = procedural_faces(cfg, EVAL_FACES, EVAL_SEEDS["real_a"])[0]
+        real_b = procedural_faces(cfg, EVAL_FACES, EVAL_SEEDS["real_b"])[0]
+        render_s = time.perf_counter() - t0
+        infer = make_infer_fn(cfg, gen)
+        fakes, per_batch, gen_s = [], [], []
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        for i in range(0, EVAL_FACES, BATCH):
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            fakes.append(harness.fake_batch(infer, sources[i: i + BATCH],
+                                            cmds[i: i + BATCH], vocab,
+                                            cfg.max_text_len, dev))
+            gen_s.append(time.perf_counter() - t0)
+            per_batch.append({k: kernels.LAUNCHES[k] - before[k] for k in before})
+        launches = dict(kernels.LAUNCHES)
+        n_batches = EVAL_FACES // BATCH
+        if any(b != SERVE_LAUNCHES for b in per_batch) or launches != {
+                k: n_batches * v for k, v in SERVE_LAUNCHES.items()}:
+            raise AssertionError(f"fake batches' launches {launches}, per batch {per_batch}")
+        fake_all = np.concatenate(fakes)
+        if fake_all.shape != sources.shape or not np.isfinite(fake_all).all() \
+                or float(np.abs(fake_all).max()) > 1.0:
+            raise AssertionError(f"fakes: shape {fake_all.shape}, max |x| "
+                                 f"{float(np.abs(fake_all).max())}")
+        del gen, infer
+
+        # InceptionV3 at full width: card against the CPU, fp32, TF32 off
+        iv3_cpu = init_random_inception(SEED)
+        iv3 = copy.deepcopy(iv3_cpu).to(dev)
+        check = real_a[:IV3_CHECK]
+        f_card, l_card = harness.FeatureExtractor(iv3).run([check])
+        f_cpu, l_cpu = harness.FeatureExtractor(iv3_cpu).run([check])
+        f_rel = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+        l_rel = float(np.abs(l_card - l_cpu).max() / np.abs(l_cpu).max())
+        if not (f_rel <= IV3_REL and l_rel <= IV3_REL):
+            raise AssertionError(f"inception card vs CPU: features {f_rel}, logits {l_rel}")
+        del iv3_cpu
+        # ... and through a torchvision-layout file and the converter
+        torchvision_inception_pth(iv3, tmp / "iv3.pth")
+        convert_inception.convert(str(tmp / "iv3.pth"), str(tmp / "iv3.npz"))
+        iv3_conv = convert_inception.load_converted(str(tmp / "iv3.npz"),
+                                                    InceptionV3().to(dev))
+        f_conv, l_conv = harness.FeatureExtractor(iv3_conv).run([check])
+        if not (np.array_equal(f_conv, f_card) and np.array_equal(l_conv, l_card)):
+            raise AssertionError("converted inception's features differ from the module's")
+        del iv3_conv
+
+    # the scores, then the timed parts
+    batches = lambda a: (a[i: i + BATCH] for i in range(0, len(a), BATCH))
+    vs_fakes = harness.compute_fid_is(batches(real_a), fakes, iv3)
+    vs_real = harness.compute_fid_is(batches(real_a), batches(real_b), iv3)
+    nums = [vs_fakes[k] for k in ("fid", "is_mean", "is_std")] + \
+        [vs_real[k] for k in ("fid", "is_mean", "is_std")]
+    if not all(math.isfinite(x) for x in nums) or not vs_real["fid"] < vs_fakes["fid"] \
+            or not all(1.0 <= r["is_mean"] <= 1000.0 for r in (vs_fakes, vs_real)):
+        raise AssertionError(f"scores: vs fakes {vs_fakes}, vs set B {vs_real}")
+    ex = harness.FeatureExtractor(iv3)
+    ex.run(batches(real_a[:BATCH]))                # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats_a, _ = ex.run(batches(real_a))
+    iv3_s = time.perf_counter() - t0
+    feats_f, _ = ex.run(fakes)
+    # the trunk alone on a batch already at 299 px, by CUDA events
+    x299 = preprocess_for_inception(torch.from_numpy(real_a[:BATCH]).to(dev))
+    with torch.inference_mode(), fp32_precision():
+        trunk_ms = time_ms(lambda i: iv3(x299), iters=10)
+    trunk_flop = conv_fc_flops(iv3, x299)
+    t0 = time.perf_counter()
+    fid_from_stats(*feature_stats(feats_a), *feature_stats(feats_f))
+    stats_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_phase
+    gen_ips = (EVAL_FACES - BATCH) / sum(gen_s[1:])
+    result = dict(vs_fakes=vs_fakes, vs_real_b=vs_real, gen_images_per_s=gen_ips,
+                  gen_first_batch_s=gen_s[0], iv3_images_per_s=EVAL_FACES / iv3_s,
+                  stats_host_s=stats_s, peak_mib=peak / 2**20, trunk_ms=trunk_ms,
+                  trunk_tflop_per_s=trunk_flop / trunk_ms / 1e9,
+                  phase_s=wall, render_s=render_s, iv3_card_vs_cpu=(f_rel, l_rel))
+    log(f"eval: reference state dicts at flagship width imported at step {step} "
+        f"(bias_hh folded into bias_ih) and loaded back through evaluate.load_generator: "
+        f"all {n_gen_tensors} generator tensors bit-equal to the folded state, the "
+        f"discriminator's EMA copy to its state; {EVAL_FACES} procedural faces through "
+        f"harness.fake_batch at batch {BATCH} ({cfg.compute_dtype}, {cfg.norm_stats}): "
+        f"launches {launches} ({SERVE_LAUNCHES} in each of {n_batches} batches, no "
+        f"backward), fakes finite in [-1, 1]")
+    log(f"eval: InceptionV3 (random init, seed {SEED}), {IV3_CHECK} images, fp32, TF32 "
+        f"off: card vs CPU max diff / largest: features {f_rel:.3e}, logits {l_rel:.3e} "
+        f"(tolerance {IV3_REL}); through a torchvision-layout .pth, convert_inception "
+        f"and load_converted: features and logits bit-equal on the card")
+    log(f"eval: scores, real set A ({EVAL_FACES}) vs the fakes: {json.dumps(vs_fakes)}; "
+        f"A vs real set B ({EVAL_FACES}): {json.dumps(vs_real)}; card {card}")
+    log(f"eval: generation {gen_ips:.1f} images/s (batches 2-{n_batches}, host images "
+        f"in, fakes back on the host; the first batch {gen_s[0]:.3f} s); card {card}")
+    log(f"eval: InceptionV3 {EVAL_FACES / iv3_s:.1f} images/s ({EVAL_FACES} images of "
+        f"{cfg.image_size} px in batches of {BATCH}, the copy to the card and the resize "
+        f"to 299 included); the trunk alone on a batch of {BATCH} at 299 px "
+        f"(CUDA events, mean of 10): {trunk_ms:.3f} ms, {BATCH / trunk_ms * 1e3:.1f} "
+        f"images/s, {trunk_flop / BATCH / 1e9:.3f} GFLOP an image of convolutions and "
+        f"products, {trunk_flop / trunk_ms / 1e9:.2f} TFLOP/s = "
+        f"{trunk_flop / trunk_ms / 1e-3 / FP32_FLOPS_PER_S:.3f} of the fp32 peak; "
+        f"card {card}")
+    log(f"eval: host seconds of feature_stats (twice, {EVAL_FACES} x 2048) and "
+        f"fid_from_stats: {stats_s:.3f}; card {card}")
+    log(f"eval: peak memory {peak / 2**20:.0f} MiB; card {card}")
+    log(f"eval: phase wall time {wall:.1f} s (rendering the {3 * EVAL_FACES} faces "
+        f"{render_s:.1f} s of it); card {card}")
+    return result
+
+
 # ---------------------------------------------------------------- phases 3, 4
 
 def phase_slice_fp32(vocab, stem=False):
@@ -1750,6 +1992,7 @@ def main() -> int:
     stem_train_launches, train_on = phase_train_bf16(card, stem=True)
     phase_txt_bf16(vocab)
     phase_train_cli(card, train_off)
+    phase_eval(card)
     log("stem_on_vs_off (phases 9-10 against 4 and 7 of this run): serving "
         + json.dumps({"on": serve_on, "off": serve_off}) + "; training "
         + json.dumps({"on": train_on, "off": train_off}))

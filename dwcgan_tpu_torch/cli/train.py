@@ -7,8 +7,9 @@ Builds the generator and discriminator of `--config` in train mode with
 random weights from the config's seed (the word embeddings from
 `pretrained_embed` when that file exists and `--use_pretrained_embed` is
 1, then frozen), both Adam optimizers, the EMA copies and the VGG16
-perceptual loss (weights from `vgg_model_path` when that `.npz` exists,
-else random-init under `vgg_random_fallback`), and trains on the device
+perceptual loss (weights from `vgg_model_path`, or from
+`OUT/models/vgg16.npz` when the config names none, as the JAX CLI; else
+random-init under `vgg_random_fallback`), and trains on the device
 (the card unless `--device cpu`) for `max_iter` steps (`--max_steps`).
 
 Data: `--procedural_data` (label-controlled faces, `data/procedural.py`),
@@ -30,8 +31,9 @@ as if never interrupted.  With `use_pretrain`, `gen_pretrain` (a port
 checkpoint) warm-starts the parameters.  FiniteGuard stops the run on
 non-finite losses; StallWatchdog reports a stalled loop.
 
-Not ported yet: evaluation (FID/IS), data-parallel training (`--mesh_model`
-and several processes wait for DDP), the legacy v1 models.
+Not ported yet: data-parallel training (`--mesh_model` and several
+processes wait for DDP), the legacy v1 models.  FID/IS evaluation is
+`cli/evaluate.py`.
 """
 
 from __future__ import annotations
@@ -67,36 +69,46 @@ BATCH_POOL = 8
 PROFILE_STEPS = (10, 20)   # --profile_dir traces these steps
 
 
-def build_vgg_loss(cfg: Config, device):
+def build_vgg_loss(cfg: Config, device, output_path: str = "."):
     """The perceptual loss of the recipe, or None when vgg_w is 0 or no
-    weights exist and the random fallback is off."""
+    weights exist and the random fallback is off.  The weights are
+    `vgg_model_path`, or `<output_path>/models/vgg16.npz` when that is
+    empty (`dwcgan_tpu/cli/train.py:148-169`; `cli/convert_vgg.py` writes
+    the file)."""
     if cfg.vgg_w <= 0:
         return None
+    vgg_path = cfg.vgg_model_path or os.path.join(output_path, "models", "vgg16.npz")
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     vgg = Vgg16Features(dtype)
-    if cfg.vgg_model_path and os.path.exists(cfg.vgg_model_path):
-        load_vgg_npz(vgg, cfg.vgg_model_path)
-        print(f"perceptual loss on (weights: {cfg.vgg_model_path})")
+    if os.path.exists(vgg_path):
+        load_vgg_npz(vgg, vgg_path)
+        print(f"perceptual loss on (weights: {vgg_path})")
     elif cfg.vgg_random_fallback:
         init_random_vgg(vgg, cfg.seed)
-        print(f"vgg_w={cfg.vgg_w} and no VGG weights: random-init VGG "
-              "features (vgg_random_fallback)")
+        print(f"WARNING: vgg_w={cfg.vgg_w} but no weights at {vgg_path}; "
+              "using RANDOM-INIT VGG features (vgg_random_fallback). "
+              "Build real weights with cli.convert_vgg for paper parity.")
     else:
-        print(f"vgg_w={cfg.vgg_w} but no VGG weights; perceptual loss off")
+        print(f"vgg_w={cfg.vgg_w} but no weights at {vgg_path}; "
+              "perceptual loss off (build with cli.convert_vgg)")
         return None
     return make_vgg_loss_fn(vgg.to(device), stats=cfg.norm_stats)
 
 
-def build_trainer(cfg: Config, device="cuda", seed=None, embed_table=None):
+def build_trainer(cfg: Config, device="cuda", seed=None, embed_table=None,
+                  output_path: str = "."):
     """(state, step_fn, vocab): everything one training iteration needs.
-    `embed_table` ([vocab, embed_dim]) is the frozen word embedding."""
+    `embed_table` ([vocab, embed_dim]) is the frozen word embedding;
+    `output_path` is where the VGG16 weights are looked for when the
+    config names none (`build_vgg_loss`)."""
     dev = resolve_device(device)
     torch.manual_seed(cfg.seed if seed is None else seed)  # anything not given state.rng
     vocab = Vocab(cfg.dataset)
     state = create_train_state(cfg, vocab.size, device=dev, seed=seed,
                                embed_table=embed_table)
     step_fn = make_train_step(cfg, state.gen, state.dis, state.gen_opt,
-                              state.dis_opt, vgg_loss_fn=build_vgg_loss(cfg, dev))
+                              state.dis_opt,
+                              vgg_loss_fn=build_vgg_loss(cfg, dev, output_path))
     return state, step_fn, vocab
 
 
@@ -112,7 +124,7 @@ def load_pretrained_embeddings(path):
     """{word: vector} from a pickled dict, an `.npz` of one array per word
     or a pickled object `.npy` (`dwcgan_tpu/cli/train.py:65-85`); None when
     the file is missing or unreadable.  Unpickling runs code: give it only
-    files you made (`cli/build_embeddings.py` of the JAX package)."""
+    files you made (`cli/build_embeddings.py`)."""
     if not path or not os.path.exists(path):
         return None
     try:
@@ -180,9 +192,9 @@ def display_batch(ds, n: int) -> Batch:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="DWC-GAN training on one card (PyTorch/CUDA port). Not "
-        "ported yet: evaluation (FID/IS), data-parallel training (DDP), the "
-        "legacy v1 models.")
+        description="DWC-GAN training on one card (PyTorch/CUDA port). FID/IS "
+        "evaluation of its checkpoints: python -m dwcgan_tpu_torch.cli.evaluate. "
+        "Not ported yet: data-parallel training (DDP), the legacy v1 models.")
     p.add_argument("--config", default="configs/celeba_faces.yaml")
     p.add_argument("--output_path", default=".")
     p.add_argument("--resume", type=int, default=0,
@@ -226,7 +238,8 @@ def main(argv=None):
             embed_table = build_embedding_matrix(vocab, cfg.gen.embed_dim, pre,
                                                  seed=cfg.seed)
             print(f"loaded pretrained embeddings for vocab of {vocab.size}")
-    state, step_fn, _ = build_trainer(cfg, dev, embed_table=embed_table)
+    state, step_fn, _ = build_trainer(cfg, dev, embed_table=embed_table,
+                                     output_path=args.output_path)
     n_gen = sum(p.numel() for p in state.gen.parameters())
     n_dis = sum(p.numel() for p in state.dis.parameters())
     print(f"device {dev}; The number of parameters in G: {n_gen}")

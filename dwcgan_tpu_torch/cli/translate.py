@@ -24,7 +24,7 @@ from __future__ import annotations
 import argparse
 import os
 import random
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from dwcgan_tpu_torch.config import load_config
 from dwcgan_tpu_torch.data.preprocess import preprocess_batch
 from dwcgan_tpu_torch.device import resolve_device
+from dwcgan_tpu_torch.eval.harness import read_src2trg
 from dwcgan_tpu_torch.interop.jax_params import load_jax_params
 from dwcgan_tpu_torch.models.generator import build_generator
 from dwcgan_tpu_torch.text.synthesis import TextSynthesizer
@@ -41,18 +42,6 @@ from dwcgan_tpu_torch.train.checkpoint import (checkpoint_file,
                                                checkpoint_header,
                                                read_checkpoint)
 from dwcgan_tpu_torch.train.sampler import make_infer_fn
-
-
-def read_src2trg(path: str) -> List[Tuple[str, str]]:
-    """Lines of 'image<TAB>command' -> [(image, command)] (blank lines skipped;
-    a copy of `dwcgan_tpu/eval/harness.py::read_src2trg`)."""
-    out = []
-    with open(path, "r") as f:
-        for ln in f:
-            if ln.strip():
-                name, _, cmd = ln.rstrip("\n").partition("\t")
-                out.append((name, cmd))
-    return out
 
 
 def _center_crop_resize(img, crop: int, size: int,

@@ -1,5 +1,5 @@
 """Load the JAX package's parameters into the port: generator,
-discriminator and VGG16.
+discriminator, VGG16 and InceptionV3.
 
 `load_jax_params(gen, params)` takes the parameter tree of a
 `dwcgan_tpu.models.generator.Generator` as numpy arrays, nested dicts or a
@@ -21,7 +21,9 @@ names the port keeps:
 
 `load_jax_dis_params` is the inverse of `convert_reference_discriminator`
 (torch_import.py:156-169); `jax_vgg_to_state_dict` maps the VGG16 tree
-(`{name}/kernel` HWIO, `{name}/bias`) to the port's `{name}.weight` OIHW.
+(`{name}/kernel` HWIO, `{name}/bias`) to the port's `{name}.weight` OIHW;
+`jax_inception_to_state_dict` maps the FID/IS InceptionV3 tree
+(`dwcgan_tpu/eval/inception.py`) to the port's torchvision names.
 """
 
 from __future__ import annotations
@@ -173,3 +175,36 @@ def jax_vgg_to_state_dict(params) -> Dict[str, np.ndarray]:
         else:
             sd[f"{name}.bias"] = v
     return {k: np.array(v, dtype=np.float32, order="C") for k, v in sd.items()}
+
+
+_INCEPTION_BN = {"bn_gamma": "bn.weight", "bn_beta": "bn.bias",
+                 "bn_mean": "bn.running_mean", "bn_var": "bn.running_var"}
+
+
+def jax_inception_to_state_dict(params) -> Dict[str, np.ndarray]:
+    """JAX InceptionV3 variables (`{block}/conv/kernel` HWIO, `{block}/bn_*`,
+    `fc/kernel` [in, out], `fc/bias`) -> the port's torchvision-named
+    state dict: conv weights OIHW, the BN leaves as the BN buffers, `fc`
+    transposed."""
+    sd: Dict[str, np.ndarray] = {}
+    for key, v in flatten_params(params).items():
+        *path, leaf = key.split("/")
+        if leaf == "kernel" and path[-1] == "conv":
+            sd[".".join(path) + ".weight"] = v.transpose(3, 2, 0, 1)
+        elif leaf in _INCEPTION_BN:
+            sd[".".join(path + [_INCEPTION_BN[leaf]])] = v
+        elif path == ["fc"] and leaf == "kernel":
+            sd["fc.weight"] = v.T
+        elif path == ["fc"] and leaf == "bias":
+            sd["fc.bias"] = v
+        else:
+            raise KeyError(f"no InceptionV3 tensor for {key!r}")
+    return {k: np.array(v, dtype=np.float32, order="C") for k, v in sd.items()}
+
+
+def load_jax_inception(model, params) -> None:
+    """Load JAX InceptionV3 variables into the port's `InceptionV3`
+    (strict: every name must match), on the model's device."""
+    sd = jax_inception_to_state_dict(params)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                          strict=True)

@@ -12,7 +12,7 @@ that needs no gradient (the real batch) records no graph.
 Weights: random from a seed (flax's default init of the JAX version,
 truncated-normal `lecun_normal` kernels and zero biases — the
 `vgg_random_fallback` of the recipe, since no weights can be fetched), or
-the `.npz` that `dwcgan_tpu/cli/convert_vgg.py` writes
+the `.npz` that `cli/convert_vgg.py` writes (as `dwcgan_tpu/cli/convert_vgg.py`)
 (`{name}_kernel` HWIO, `{name}_bias`).
 """
 
@@ -90,7 +90,7 @@ def init_random_vgg(vgg: Vgg16Features, seed: int) -> None:
 
 
 def load_vgg_npz(vgg: Vgg16Features, path: str) -> None:
-    """Weights from the `.npz` of `dwcgan_tpu/cli/convert_vgg.py`."""
+    """Weights from the `.npz` of `cli/convert_vgg.py`."""
     data = np.load(path)
     sd = {}
     for name, _, _ in LAYERS:

@@ -63,12 +63,23 @@ TRAINING_CLI_MODULES = (
     "utils/timer.py", "train/sampling.py", "train/sampler.py",
     "models/generator.py", "train/checkpoint.py", "cli/train.py",
     "cli/translate.py")
+# and those of the evaluation and offline tools
+EVAL_MODULES = (
+    "eval/metrics.py", "eval/inception.py", "eval/harness.py", "cli/evaluate.py",
+    "cli/convert_inception.py", "cli/convert_vgg.py", "cli/build_embeddings.py",
+    "cli/import_reference.py", "interop/reference.py", "interop/jax_params.py")
 
 
 def test_the_scans_cover_the_training_cli_modules():
     scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
     assert set(TRAINING_CLI_MODULES) <= scanned
     assert (PACKAGE / "utils" / "__init__.py").exists()   # walk_packages finds utils/
+
+
+def test_the_scans_cover_the_eval_modules():
+    scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert set(EVAL_MODULES) <= scanned
+    assert (PACKAGE / "eval" / "__init__.py").exists()    # walk_packages finds eval/
 
 
 @pytest.fixture
@@ -137,6 +148,34 @@ def test_translate_checkpoint_defaults_to_the_card(no_card, tmp_path):
                         "--image_dir", str(tmp_path),
                         "--out_dir", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
+
+
+def test_evaluate_cli_defaults_to_the_card(no_card, tmp_path):
+    from dwcgan_tpu_torch.cli import evaluate
+    argv = ["--config", str(ROOT / "configs/smoke.yaml"),
+            "--checkpoint", str(tmp_path / "checkpoints"),
+            "--real_list", str(tmp_path / "trg.lst"),
+            "--src2trg_list", str(tmp_path / "s2t.lst")]
+    with pytest.raises(RuntimeError, match="cuda"):
+        evaluate.main(argv)
+    # with --device cpu it gets as far as the (missing) checkpoint
+    with pytest.raises(FileNotFoundError, match="checkpoint"):
+        evaluate.main(argv + ["--device", "cpu"])
+
+
+def test_import_reference_defaults_to_the_card(no_card, tmp_path):
+    from dwcgan_tpu_torch.cli import import_reference
+    from dwcgan_tpu_torch.config import load_config
+    from dwcgan_tpu_torch.models.generator import build_generator
+    cfg = load_config(str(ROOT / "configs/smoke.yaml"))
+    torch.save({"a": build_generator(cfg, 102, device="cpu").state_dict()},
+               tmp_path / "gen.pt")
+    argv = ["--config", str(ROOT / "configs/smoke.yaml"),
+            "--gen_pt", str(tmp_path / "gen.pt"), "--out", str(tmp_path / "ck")]
+    with pytest.raises(RuntimeError, match="cuda"):
+        import_reference.main(argv)
+    assert not (tmp_path / "ck").exists()
+    assert import_reference.main(argv + ["--device", "cpu"]).endswith("ckpt_00000000.pt")
 
 
 def test_chip_smoke_fails_without_a_card(no_card, capsys):
