@@ -118,6 +118,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    card's name and power limit.  The card's machine has no PIL, so the
    phase feeds the harness arrays; the file-reading paths are the CPU
    tests'.
+14. the block options and the legacy family: rows 1-2 (forward) and 5-6
+   (backward) with `relu=False` at every flagship site where `activ:
+   prelu` takes their fused ReLU away (fp32 and bf16, both stats modes,
+   two runs bit-equal, phases 2 and 5's tolerances against the plain
+   versions); the flagship config with `gen.activ: prelu`, `dis.activ:
+   prelu` and `dis.norm: sn` as phase 6 (fp32, batch 2, card vs CPU,
+   rtol 1e-3) and as phase 7 (bf16, batch 16: phase 7's exact launches,
+   the PReLU slopes and spectral-norm kernels moved, 12 timed steps beside
+   phase 7's median, and the spectral norm's calls per step with their
+   eager and device ms); the discriminator with `dis.norm: bn` at
+   flagship width, fp32 card vs CPU on [16, 128, 128, 3] (each scale's
+   outputs within 2e-3 of their largest); `AdaINGenV1` (dim 64, 2
+   downsamples, 4 resblocks, mlp 256, style 8, LSTM 300 x 2) and `VAEGen`
+   (dim 64, 2, 4) at 128 px: 4 images fp32 card vs CPU (phase 3's 2e-3),
+   then bf16 at batch 32 with exactly 11 / 4 / 4 / 2 launches per batch
+   and no other, finite output in [-1, 1], images/s (10 batches after 4)
+   and peak memory; the phase's wall time.
 
 The last lines are the `kernels` JSON (nine kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
@@ -128,7 +145,9 @@ kernels (rows 1-7, each one cluster kernel per call) with `kernels_per_call`
 (rows 1-4 also `kernels_per_call_train`), `bit_equal_runs` and their
 `plans` at the flagship sites, the LayerNorm's rows with `nearest_call_ms`;
 the stem entries carry phase 8's HMMA counts of the kernels they run as
-`hmma`), the nvidia-smi line and `{"ok": true, "device": {...}}`.  Without
+`hmma`; rows 1-7 carry phase 14's launches per block-options step as
+`launches_block_options`, rows 1-4 per legacy batch as `launches_legacy`),
+the nvidia-smi line and `{"ok": true, "device": {...}}`.  Without
 a card it exits 1 and prints no result.
 
 Not run by `main`: `sweep_fwd_plans()` times rows 1-3 at every serving and
@@ -175,13 +194,15 @@ from dwcgan_tpu_torch.eval.inception import (InceptionV3, fp32_precision,
 from dwcgan_tpu_torch.eval.metrics import feature_stats, fid_from_stats
 from dwcgan_tpu_torch.models.discriminator import build_discriminator
 from dwcgan_tpu_torch.models.generator import build_generator
-from dwcgan_tpu_torch.ops import norms, stem
+from dwcgan_tpu_torch.models.legacy import build_legacy_generator
+from dwcgan_tpu_torch.ops import blocks, norms, stem
 from dwcgan_tpu_torch.ops.cuda import build, kernels
 from dwcgan_tpu_torch.text.synthesis import TextSynthesizer
 from dwcgan_tpu_torch.text.vocab import Vocab, encode_commands
 from dwcgan_tpu_torch.train.checkpoint import (CheckpointManager,
                                                checkpoint_header, checkpoint_steps)
 from dwcgan_tpu_torch.train.sampler import make_infer_fn, make_sample_fn
+from dwcgan_tpu_torch.train.sampling import blend_attention
 from dwcgan_tpu_torch.train.step import make_train_step
 
 ROOT = Path(__file__).resolve().parent
@@ -1219,15 +1240,18 @@ def _draws(cfg, n, seed):
             "style2": torch.randn(shape, generator=g)}
 
 
-def phase_step_fp32(stem=False):
+def phase_step_fp32(stem=False, options=False):
     """One fp32 step on the card against the same step on the CPU.  Both
     trainers draw their weights from the same seed on the CPU's generator,
     so they start identical; dropout is off and the style draws are given.
-    `stem`: the config's `stem_pallas` on (phase 10)."""
+    `stem`: the config's `stem_pallas` on (phase 10); `options`: the block
+    options of phase 14 (`block_options`)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(str(CONFIG))
     cfg.compute_dtype, cfg.batch_size, cfg.stem_pallas = "float32", 2, stem
+    if options:
+        block_options(cfg)
     results, secs = [], []
     for dev in ("cpu", "cuda"):
         state, _, _ = build_trainer(cfg, dev, seed=SEED)
@@ -1245,7 +1269,8 @@ def phase_step_fp32(stem=False):
     worst = max(abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu)
     bad = {k: (cpu[k], gpu[k]) for k in cpu
            if abs(gpu[k] - cpu[k]) > STEP_RTOL * abs(cpu[k]) + 1e-6}
-    log(f"step_fp32: stem_pallas {stem}, flagship width, batch 2, VGG on, "
+    log(f"step_fp32: stem_pallas {stem}, block options {options}, flagship "
+        f"width, batch 2, VGG on, "
         f"every metric card vs CPU: "
         f"worst relative diff {worst:.3e} (rtol {STEP_RTOL}); CPU step "
         f"{secs[0]:.1f} s, card step (first, cold) {secs[1]:.1f} s; metrics "
@@ -1255,16 +1280,22 @@ def phase_step_fp32(stem=False):
     return worst
 
 
-def phase_train_bf16(card, stem=False):
+def phase_train_bf16(card, stem=False, options=False):
     """The flagship step through cli/train.py's trainer (`stem`: with
-    `stem_pallas` on, phase 10).  Returns (launches per step, timing)."""
+    `stem_pallas` on, phase 10; `options`: with the block options, phase
+    14, which also checks that the PReLU slopes and the spectral-norm
+    kernels moved and times the spectral norm's share of a step).  Returns
+    (launches per step, timing)."""
     cfg = load_config(str(CONFIG))
     cfg.stem_pallas = stem
+    if options:
+        block_options(cfg)
     expected = STEM_TRAIN_LAUNCHES if stem else EXPECTED_TRAIN_LAUNCHES
     dev = torch.device("cuda")
     state, step, _ = build_trainer(cfg, dev, seed=SEED)
     batches = synthetic_batches(cfg, dev, seed=SEED + 9)
     gen0 = [p.detach().clone() for p in state.gen.parameters()]
+    opt0 = option_params(state) if options else None
     ema0 = [p.detach().clone() for p in state.ema_gen.parameters()]
     for i in range(3):
         step(state, batches[i % len(batches)])
@@ -1290,6 +1321,8 @@ def phase_train_bf16(card, stem=False):
     d_gen, d_ema = moved(state.gen.parameters(), gen0), moved(state.ema_gen.parameters(), ema0)
     if not (d_gen > 0 and 0 < d_ema < d_gen):
         raise AssertionError(f"parameters moved {d_gen}, EMA {d_ema}")
+    if options:
+        option_params_moved(state, opt0)
 
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1306,7 +1339,10 @@ def phase_train_bf16(card, stem=False):
     med = ev[len(ev) // 2]
     timing = dict(median_ms=med, min_ms=ev[0], max_ms=ev[-1],
                   images_per_s=cfg.batch_size / (med / 1e3), peak_mib=peak / 2**20)
-    log(f"train_bf16: stem_pallas {stem}, {TIMED_STEPS} steps of batch "
+    if options:
+        timing.update(spectral_norm_share(state, step, batches[0]))
+    log(f"train_bf16: stem_pallas {stem}, block options {bool(options)}, "
+        f"{TIMED_STEPS} steps of batch "
         f"{cfg.batch_size} after 4: CUDA-event ms per step median {med:.3f}, "
         f"min {ev[0]:.3f}, max {ev[-1]:.3f} -> {timing['images_per_s']:.2f} "
         f"images/s at the median; peak memory {peak / 2**20:.0f} MiB; last "
@@ -1867,6 +1903,253 @@ def phase_eval(card):
 
 # ---------------------------------------------------------------- phases 3, 4
 
+# ---------------------------------------------------------------- phase 14
+
+# the flagship sites whose fused ReLU `activ: prelu` takes away: the
+# forwards of one served batch, and the forward / backward pairs of one
+# training step
+NORELU_FWD_SITES = tuple(dict.fromkeys((k, s) for k, s, relu, _ in SITES if relu))
+NORELU_BWD_SITES = tuple(dict.fromkeys((c, f, s) for c, f, s, relu, _, _ in BWD_SITES
+                                       if relu))
+DIS_BN_REL = 2e-3        # bn discriminator card vs CPU, of each output's largest
+LEGACY_DIMS = {
+    "AdaINGenV1": dict(dim=64, n_downsample=2, n_res=4, mlp_dim=256, style_dim=8,
+                       embed_dim=300, hidden_size=300, num_layers=2),
+    "VAEGen": dict(dim=64, n_downsample=2, n_res=4),
+}
+LEGACY_BATCHES = 10      # timed legacy batches
+
+
+def block_options(cfg):
+    """The flagship config with every block option a user can set today
+    that the flagship leaves off: PReLU in both nets, spectral norm in D."""
+    cfg.gen.activ = cfg.dis.activ = "prelu"
+    cfg.dis.norm = "sn"
+    return cfg
+
+
+def option_params(state) -> dict:
+    """The PReLU slopes of both nets and D's spectral-norm kernels (every
+    block but each tower's first), copied."""
+    out = {f"gen.{n}": p for n, p in state.gen.named_parameters()
+           if n.endswith("activation.weight")}
+    out.update({f"dis.{n}": p for n, p in state.dis.named_parameters()
+                if n.endswith("activation.weight")
+                or (n.endswith(".conv.weight") and ".0.conv" not in n)})
+    return {k: p.detach().clone() for k, p in out.items()}
+
+
+def option_params_moved(state, before: dict) -> None:
+    now = option_params(state)
+    still = [k for k in before if torch.equal(now[k], before[k])]
+    if still or not before:
+        raise AssertionError(f"option parameters that did not move: {still}")
+
+
+def spectral_norm_share(state, step, batch) -> dict:
+    """How often one step computes a spectral norm (one more step, with
+    `spectral_sigma` counting its calls), and those calls' time: each
+    matrix's sigma (30 power iterations, then v . (W u)) timed alone, eager
+    (as the step issues it) and on the device (CUDA graph), summed over
+    the step's calls."""
+    calls = []
+    orig = blocks.spectral_sigma
+
+    def counting(w_mat, n_iter=blocks.SN_ITERS):
+        calls.append(tuple(w_mat.shape))
+        return orig(w_mat, n_iter)
+
+    blocks.spectral_sigma = counting
+    try:
+        step(state, batch)
+    finally:
+        blocks.spectral_sigma = orig
+    torch.cuda.synchronize()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    eager = device = 0.0
+    shapes = {}
+    for shape in calls:
+        shapes[shape] = shapes.get(shape, 0) + 1
+    for shape, n in shapes.items():
+        w = torch.randn(shape, generator=g, device="cuda") * 0.02
+        eager += n * time_ms(lambda i: orig(w))
+        device += n * device_ms(lambda i: orig(w))
+    return dict(sn_calls_per_step=len(calls), sn_eager_ms_per_step=eager,
+                sn_device_ms_per_step=device,
+                sn_shapes={str(list(k)): v for k, v in shapes.items()})
+
+
+def check_norelu_sites() -> dict:
+    """Rows 1-2 (forward) and 5-6 (backward) with `relu=False` at every
+    flagship site where they fuse a ReLU, fp32 and bf16, both stats modes,
+    two runs bit-equal, against the plain versions with phases 2 and 5's
+    tolerances.  Returns the worst errors."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    worst = {"fwd": 0.0, "bwd_rel": 0.0, "checks": 0}
+    for kernel, shape in NORELU_FWD_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for stats in ("2pass", "1pass"):
+                args = site_inputs(kernel, shape, dtype, g)
+                out, again = (run_kernel(kernel, args, False, stats) for _ in range(2))
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{kernel} {shape} relu=False: two runs differ")
+                err = check_forward(kernel, shape, False, dtype, stats, args, out)
+                worst["fwd"] = max(worst["fwd"], err)
+                worst["checks"] += 1
+    for counter, fwd, shape in NORELU_BWD_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for stats in ("2pass", "1pass"):
+                args = site_inputs(fwd, shape, dtype, g)
+                x, params = args[0], args[1:]
+                out, st = run_kernel_stats(fwd, args, False, stats)
+                worst["fwd"] = max(worst["fwd"], check_forward(
+                    fwd, shape, False, dtype, stats, args, out))
+                gr = torch.randn(out.shape, generator=g, device="cuda").to(
+                    dtype).contiguous(memory_format=torch.channels_last)
+                got, again = (run_bwd(counter, x, gr, st, params, False)
+                              for _ in range(2))
+                label = f"{counter} {shape} {dtype} {stats} relu=False"
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{label}: two runs differ")
+                want = run_bwd_plain(counter, x.float(), gr.float(), out.float(),
+                                     params, False, stats)
+                worst["bwd_rel"] = max(worst["bwd_rel"],
+                                       check_bwd_close(label, got, want, dtype)[1])
+                worst["checks"] += 2
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_dis_bn() -> float:
+    """The discriminator with `dis.norm: bn` at flagship width, fp32, TF32
+    off: a forward on [16, 128, 128, 3] on the card against the CPU, every
+    scale's outputs within DIS_BN_REL of their largest magnitude."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config(str(CONFIG))
+    cfg.compute_dtype, cfg.dis.norm = "float32", "bn"
+    cpu = build_discriminator(cfg, device="cpu", seed=SEED)
+    gpu = build_discriminator(cfg, device="cuda", seed=SEED)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(SEED + 42)
+    x = torch.rand((16, cfg.image_size, cfg.image_size, 3), generator=g) * 2 - 1
+    with torch.no_grad():
+        want, got = cpu(x), gpu(x.cuda())
+    torch.backends.cudnn.allow_tf32 = True
+    worst = 0.0
+    for pair, wpair in zip(got, want):
+        for a, b in zip(pair, wpair):
+            rel = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+            worst = max(worst, rel)
+            if not torch.isfinite(a).all() or rel > DIS_BN_REL:
+                raise AssertionError(f"bn discriminator card vs CPU: {rel:.3e}")
+    log(f"dis_bn: flagship width, batch 16, fp32, every scale's outputs card vs "
+        f"CPU within {worst:.3e} of their largest (bound {DIS_BN_REL})")
+    return worst
+
+
+def legacy_serve(kind, model, imgs, ids, lens, dev):
+    """A legacy generator's serving path on host images: `AdaINGenV1`
+    encodes, text-encodes the commands and decodes, blended by its
+    attention as `translate_batch` blends; `VAEGen` runs its deterministic
+    forward.  fp32 NHWC on the card."""
+    x = torch.from_numpy(imgs).to(dev)
+    with torch.inference_mode():
+        if kind == "VAEGen":
+            return model(x)[0].float()
+        content, mu, _ = model.encode(x)
+        mu_t, _ = model.encode_txt(mu, torch.from_numpy(ids).to(dev),
+                                   torch.from_numpy(lens))
+        img, att = model.decode(content, mu_t)
+        return blend_attention(img, att, x)
+
+
+def phase_legacy(vocab, card) -> dict:
+    """The legacy generators at flagship width: fp32 card vs CPU on 4
+    images (phase 3's tolerance), then bf16 at batch 32: exactly phase 4's
+    launches per batch, finite output in [-1, 1], images/s and peak
+    memory."""
+    cfg = load_config(str(CONFIG))
+    imgs, cmds = synthetic_requests(BATCH, cfg.image_size, SEED + 40)
+    ids, lens = encode_commands(cmds, vocab, cfg.max_text_len)
+    dev = torch.device("cuda")
+    out = {}
+    for kind, dims in LEGACY_DIMS.items():
+        kw = dict(dims, vocab_size=vocab.size) if kind == "AdaINGenV1" else dims
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cpu = build_legacy_generator(kind, device="cpu", seed=SEED, **kw)
+        gpu = build_legacy_generator(kind, device="cuda", seed=SEED, **kw)
+        gpu.load_state_dict(cpu.state_dict())
+        diff = float((legacy_serve(kind, gpu, imgs[:4], ids[:4], lens[:4], dev).cpu()
+                      - legacy_serve(kind, cpu, imgs[:4], ids[:4], lens[:4],
+                                     torch.device("cpu"))).abs().max())
+        torch.backends.cudnn.allow_tf32 = True
+        if diff > SLICE_ATOL:
+            raise AssertionError(f"{kind} fp32 card vs CPU: {diff}")
+        del cpu, gpu
+        model = build_legacy_generator(kind, device=dev, seed=SEED,
+                                       dtype=torch.bfloat16, stats=cfg.norm_stats, **kw)
+        serve = lambda: legacy_serve(kind, model, imgs, ids, lens, dev).cpu()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        y = serve()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if launches != SERVE_LAUNCHES:
+            raise AssertionError(f"{kind}: launches {launches} != {SERVE_LAUNCHES}")
+        if tuple(y.shape) != imgs.shape or not torch.isfinite(y).all() \
+                or float(y.abs().max()) > 1.0:
+            raise AssertionError(f"{kind}: bad output {tuple(y.shape)}, "
+                                 f"max |x| {float(y.abs().max())}")
+        for _ in range(3):
+            serve()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(LEGACY_BATCHES):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            serve()
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        ev = sorted(times)
+        med = ev[len(ev) // 2]
+        out[kind] = dict(fp32_max_abs_diff=diff, launches=launches, median_ms=med,
+                         min_ms=ev[0], max_ms=ev[-1],
+                         images_per_s=BATCH / (med / 1e3),
+                         peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        log(f"legacy {kind}: fp32 card vs CPU max abs diff {diff:.3e} (bound "
+            f"{SLICE_ATOL}); bf16 batch {BATCH}, norm_stats {cfg.norm_stats}, "
+            f"launches per batch {launches}; {LEGACY_BATCHES} batches after 4: "
+            f"CUDA-event ms median {med:.3f}, min {ev[0]:.3f}, max {ev[-1]:.3f} "
+            f"-> {out[kind]['images_per_s']:.1f} images/s; peak memory "
+            f"{out[kind]['peak_mib']:.0f} MiB; card {card}")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_block_options(vocab, card, train_off) -> dict:
+    """Phase 14: the block options and the legacy family on the card."""
+    t0 = time.perf_counter()
+    norelu = check_norelu_sites()
+    log("norelu_check: rows 1-2 forward and 5-6 backward with relu=False at "
+        f"every flagship ReLU site: {json.dumps(norelu)}")
+    step_worst = phase_step_fp32(options=True)
+    launches, timing = phase_train_bf16(card, options=True)
+    dis_bn = phase_dis_bn()
+    legacy = phase_legacy(vocab, card)
+    wall = time.perf_counter() - t0
+    result = dict(norelu=norelu, step_fp32_worst=step_worst, launches=launches,
+                  step=timing, phase7_median_ms=train_off["median_ms"],
+                  dis_bn_worst=dis_bn, legacy=legacy, wall_s=wall)
+    log("block_options: " + json.dumps(result) + f"; card {card}")
+    return result
+
+
 def phase_slice_fp32(vocab, stem=False):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1993,6 +2276,7 @@ def main() -> int:
     phase_txt_bf16(vocab)
     phase_train_cli(card, train_off)
     phase_eval(card)
+    options = phase_block_options(vocab, card, train_off)
     log("stem_on_vs_off (phases 9-10 against 4 and 7 of this run): serving "
         + json.dumps({"on": serve_on, "off": serve_off}) + "; training "
         + json.dumps({"on": train_on, "off": train_off}))
@@ -2040,6 +2324,11 @@ def main() -> int:
                  "ms_train": sum(r["fwd_ms"] * r["fwd_calls_per_step"] for r in train),
                  "bound_ms_train": sum(r["fwd_bound_ms"] * r["fwd_calls_per_step"]
                                        for r in train)}
+        # phase 14: per step with the block options, per batch of each
+        # legacy generator
+        extra["launches_block_options"] = options["launches"][name]
+        extra["launches_legacy"] = {k: v["launches"][name]
+                                    for k, v in options["legacy"].items()}
         if name in CLUSTER_FWD:
             # rows 1-4: CUDA kernels per call, at the serving and training sites
             extra["kernels_per_call"] = max(r["kernels_per_call"] for r in mine)
@@ -2057,6 +2346,7 @@ def main() -> int:
             "calls_per_step", "training step of 16, bf16, " + cfg.norm_stats,
             sum(train_launches[c] for c in counters),
             {"launches_by_counter": {c: train_launches[c] for c in counters},
+             "launches_block_options": sum(options["launches"][c] for c in counters),
              "kernels_per_call": max(r["kernels_per_call"] for r in mine),
              "mask_mismatches": sum(r.get("mask_mismatches", 0) for r in mine)}))
     stem_entry = lambda name, per_key, per, launches, extra: entry(

@@ -19,6 +19,15 @@ names the port keeps:
 `bias_hh` carries no JAX parameter: it is loaded as zero and stays frozen
 (`models/generator.py::freeze_lstm_bias_hh`).
 
+Every block maps its options' leaves too: a spectral norm's raw
+`sn_kernel` / `sn_bias` to `conv.*` or `fc.*`, `bn_gamma` / `bn_beta` to
+`norm.weight` / `norm.bias`, a LinearBlock's `ln_gamma` / `ln_beta` to
+`norm.gamma` / `norm.beta`, a PReLU's `PReLU_0/slope` (shape ()) to
+`activation.weight` ([1]).  A JAX leaf that no mapping reads raises, so an
+option the mapping does not know cannot load silently.
+`jax_legacy_to_state_dict` / `load_jax_legacy_params` map the five
+modules of `dwcgan_tpu/models/legacy.py` to `models/legacy.py`.
+
 `load_jax_dis_params` is the inverse of `convert_reference_discriminator`
 (torch_import.py:156-169); `jax_vgg_to_state_dict` maps the VGG16 tree
 (`{name}/kernel` HWIO, `{name}/bias`) to the port's `{name}.weight` OIHW;
@@ -51,83 +60,153 @@ def flatten_params(params) -> Dict[str, np.ndarray]:
     return flat
 
 
+class _Leaves(dict):
+    """The flat JAX tree; `done()` raises on any leaf no mapping read, so
+    a block option the mapping does not know cannot load silently."""
+
+    def __init__(self, params):
+        super().__init__(flatten_params(params))
+        self.read = set()
+
+    def __getitem__(self, key):
+        self.read.add(key)
+        return super().__getitem__(key)
+
+    def done(self, sd) -> Dict[str, np.ndarray]:
+        left = sorted(set(self) - self.read)
+        if left:
+            raise KeyError(f"JAX leaves with no port parameter: {left}")
+        # np.array copies: the inputs may be read-only views (of JAX buffers
+        # or an open .npz), which torch.from_numpy must not share
+        return {k: np.array(v, dtype=np.float32, order="C")
+                for k, v in sd.items()}
+
+
+def _at(name: str, leaf: str) -> str:
+    return f"{name}.{leaf}" if name else leaf
+
+
+def _sub(path: str, leaf: str) -> str:
+    return f"{path}/{leaf}" if path else leaf
+
+
+class _Mapper:
+    """Writes port names into `sd` from the JAX leaves `p`; a module at the
+    top of either tree has the name or path ""."""
+
+    def __init__(self, p: _Leaves):
+        self.p, self.sd = p, {}
+
+    def conv(self, name, path):
+        self.sd[f"{name}.weight"] = self.p[f"{path}/kernel"].transpose(3, 2, 0, 1)
+        if f"{path}/bias" in self.p:
+            self.sd[f"{name}.bias"] = self.p[f"{path}/bias"]
+
+    def dense(self, name, path):
+        self.sd[f"{name}.weight"] = self.p[f"{path}/kernel"].T
+        self.sd[f"{name}.bias"] = self.p[f"{path}/bias"]
+
+    def block(self, name, path):
+        """A Conv2dBlock or LinearBlock: its conv/dense (raw, or the
+        spectral-norm `sn_kernel`/`sn_bias`), its norm's affine (ln ->
+        `norm.gamma`/`norm.beta`, bn -> `norm.weight`/`norm.bias`) and a
+        PReLU's slope (shape () -> `activation.weight` [1])."""
+        p, sd = self.p, self.sd
+        if f"{path}/sn_kernel" in p:
+            k = p[f"{path}/sn_kernel"]
+            layer = "conv" if k.ndim == 4 else "fc"
+            sd[f"{name}.{layer}.weight"] = (k.transpose(3, 2, 0, 1)
+                                            if k.ndim == 4 else k.T)
+            sd[f"{name}.{layer}.bias"] = p[f"{path}/sn_bias"]
+        elif f"{path}/Dense_0/kernel" in p:
+            self.dense(f"{name}.fc", f"{path}/Dense_0")
+        else:
+            self.conv(f"{name}.conv", f"{path}/Conv_0")
+        for jax_leaf, leaf in (("ln_gamma", "gamma"), ("ln_beta", "beta"),
+                               ("bn_gamma", "weight"), ("bn_beta", "bias")):
+            if f"{path}/{jax_leaf}" in p:
+                sd[f"{name}.norm.{leaf}"] = p[f"{path}/{jax_leaf}"]
+        if f"{path}/PReLU_0/slope" in p:
+            sd[f"{name}.activation.weight"] = p[f"{path}/PReLU_0/slope"].reshape(1)
+
+    def heads(self, name, path, n_heads, width, kernel=None):
+        """A fused Dense of n_heads * width outputs -> `{name}.{i}` Linears."""
+        k = self.p[f"{path}/kernel"] if kernel is None else kernel
+        b = self.p[f"{path}/bias"]
+        for i in range(n_heads):
+            self.sd[f"{name}.{i}.weight"] = k[:, i * width:(i + 1) * width].T
+            self.sd[f"{name}.{i}.bias"] = b[i * width:(i + 1) * width]
+
+    def style_convs(self, name, path, n_downsample):
+        for i in range(1 + 2 + (n_downsample - 2)):
+            self.block(_at(name, f"model.{i}"), _sub(path, f"Conv2dBlock_{i}"))
+
+    def content_encoder(self, name, path, n_downsample, n_res):
+        for i in range(1 + n_downsample):
+            self.block(_at(name, f"model.{i}"), _sub(path, f"Conv2dBlock_{i}"))
+        for b in range(n_res):
+            for j in range(2):
+                self.block(
+                    _at(name, f"model.{1 + n_downsample}.model.{b}.model.{j}"),
+                    _sub(path, f"ResBlocks_0/ResBlock_{b}/Conv2dBlock_{j}"))
+
+    def decoder(self, name, path, n_upsample, n_res, use_attention):
+        for b in range(n_res):
+            for j in range(2):
+                self.block(_at(name, f"model.0.model.{b}.model.{j}"),
+                           _sub(path, f"AdaINResBlocks_0/Conv2dBlock_{2 * b + j}"))
+        for u in range(n_upsample):
+            self.block(_at(name, f"model.{2 + 2 * u}"),
+                       _sub(path, f"Conv2dBlock_{u}"))
+        self.conv(_at(name, "image_content.conv"), _sub(path, "image_head/Conv_0"))
+        if use_attention:
+            self.conv(_at(name, "image_attention.conv"),
+                      _sub(path, "attention_head/Conv_0"))
+
+    def mlp(self, name, path, n_blk=3):
+        for i in range(n_blk):
+            self.block(_at(name, f"model.{i}"), _sub(path, f"LinearBlock_{i}"))
+
+    def txt_encoder(self, name, path, num_layers, hidden, num_cls, c_dim):
+        p, sd = self.p, self.sd
+        sd[f"{name}.embed_tokens.weight"] = p[f"{path}/embedding"]
+        for layer in range(num_layers):
+            for d, suf in (("fwd", ""), ("bwd", "_reverse")):
+                base = f"{path}/lstm/l{layer}/{d}"
+                sd[f"{name}.lstm.weight_ih_l{layer}{suf}"] = p[f"{base}_w_x"].T
+                sd[f"{name}.lstm.weight_hh_l{layer}{suf}"] = p[f"{base}_w_h"].T
+                sd[f"{name}.lstm.bias_ih_l{layer}{suf}"] = p[f"{base}_b"]
+                sd[f"{name}.lstm.bias_hh_l{layer}{suf}"] = np.zeros_like(
+                    p[f"{base}_b"])
+
+        def txt_rows(head):
+            # the JAX rows [{h,c}, layer, dir, H] -> the port's [layer,
+            # {h,c}, dir, H] (torch_import.py:137-150; any num_cls)
+            k = p[f"{path}/{head}/kernel"].reshape(2, num_layers, 2, hidden, -1)
+            return k.transpose(1, 0, 2, 3, 4).reshape(num_layers * 4 * hidden, -1)
+
+        self.heads(f"{name}.fcs", f"{path}/head_mu", num_cls, c_dim,
+                   txt_rows("head_mu"))
+        self.heads(f"{name}.fcvars", f"{path}/head_logvar", num_cls, c_dim,
+                   txt_rows("head_logvar"))
+
+
 def jax_to_state_dict(params, gen_cfg) -> Dict[str, np.ndarray]:
     """JAX generator params -> a port (reference-named) state dict."""
-    p = flatten_params(params)
-    sd: Dict[str, np.ndarray] = {}
-    K, C = gen_cfg.num_cls, gen_cfg.c_dim
-
-    def conv(name, path):
-        sd[f"{name}.weight"] = p[f"{path}/kernel"].transpose(3, 2, 0, 1)
-        sd[f"{name}.bias"] = p[f"{path}/bias"]
-
-    def dense(name, path):
-        sd[f"{name}.weight"] = p[f"{path}/kernel"].T
-        sd[f"{name}.bias"] = p[f"{path}/bias"]
-
-    def heads(name, path, kernel=None):
-        k = p[f"{path}/kernel"] if kernel is None else kernel
-        b = p[f"{path}/bias"]
-        for i in range(K):
-            sd[f"{name}.{i}.weight"] = k[:, i * C:(i + 1) * C].T
-            sd[f"{name}.{i}.bias"] = b[i * C:(i + 1) * C]
-
-    n_style = 1 + 2 + (gen_cfg.style_downsample - 2)
-    for i in range(n_style):
-        conv(f"enc_style.model.{i}.conv", f"enc_style/Conv2dBlock_{i}/Conv_0")
-    if gen_cfg.use_map:
-        dense("enc_style.mapping.0", "enc_style/map_0")
-        dense("enc_style.mapping.3", "enc_style/map_1")
-    heads("enc_style.fcs", "enc_style/head_mu")
-    heads("enc_style.fcvars", "enc_style/head_logvar")
-
-    nd = gen_cfg.content_downsample
-    for i in range(1 + nd):
-        conv(f"enc_content.model.{i}.conv",
-             f"enc_content/Conv2dBlock_{i}/Conv_0")
-    for b in range(gen_cfg.n_res):
-        for j in range(2):
-            conv(f"enc_content.model.{1 + nd}.model.{b}.model.{j}.conv",
-                 f"enc_content/ResBlocks_0/ResBlock_{b}/Conv2dBlock_{j}/Conv_0")
-
-    for b in range(gen_cfg.n_res):
-        for j in range(2):
-            conv(f"dec.model.0.model.{b}.model.{j}.conv",
-                 f"dec/AdaINResBlocks_0/Conv2dBlock_{2 * b + j}/Conv_0")
-    for u in range(nd):
-        t = 2 + 2 * u
-        conv(f"dec.model.{t}.conv", f"dec/Conv2dBlock_{u}/Conv_0")
-        sd[f"dec.model.{t}.norm.gamma"] = p[f"dec/Conv2dBlock_{u}/ln_gamma"]
-        sd[f"dec.model.{t}.norm.beta"] = p[f"dec/Conv2dBlock_{u}/ln_beta"]
-    conv("dec.image_content.conv", "dec/image_head/Conv_0")
-    if gen_cfg.use_attention:
-        conv("dec.image_attention.conv", "dec/attention_head/Conv_0")
-
-    for i in range(3):
-        dense(f"mlp.model.{i}.fc", f"mlp/LinearBlock_{i}/Dense_0")
-
-    sd["enc_txt.embed_tokens.weight"] = p["enc_txt/embedding"]
-    for layer in range(gen_cfg.num_layers):
-        for d, suf in (("fwd", ""), ("bwd", "_reverse")):
-            base = f"enc_txt/lstm/l{layer}/{d}"
-            sd[f"enc_txt.lstm.weight_ih_l{layer}{suf}"] = p[f"{base}_w_x"].T
-            sd[f"enc_txt.lstm.weight_hh_l{layer}{suf}"] = p[f"{base}_w_h"].T
-            sd[f"enc_txt.lstm.bias_ih_l{layer}{suf}"] = p[f"{base}_b"]
-            sd[f"enc_txt.lstm.bias_hh_l{layer}{suf}"] = np.zeros_like(
-                p[f"{base}_b"])
-
-    L, H = gen_cfg.num_layers, gen_cfg.hidden_size
-
-    def txt_rows(path):
-        k = p[f"{path}/kernel"].reshape(2, L, 2, H, -1)  # [{h,c}, layer, dir, H, out]
-        return k.transpose(1, 0, 2, 3, 4).reshape(L * 4 * H, -1)
-
-    heads("enc_txt.fcs", "enc_txt/head_mu", txt_rows("enc_txt/head_mu"))
-    heads("enc_txt.fcvars", "enc_txt/head_logvar",
-          txt_rows("enc_txt/head_logvar"))
-    # np.array copies: the inputs may be read-only views (of JAX buffers or
-    # an open .npz), which torch.from_numpy must not share
-    return {k: np.array(v, dtype=np.float32, order="C") for k, v in sd.items()}
+    c = gen_cfg
+    m = _Mapper(_Leaves(params))
+    m.style_convs("enc_style", "enc_style", c.style_downsample)
+    if c.use_map:
+        m.dense("enc_style.mapping.0", "enc_style/map_0")
+        m.dense("enc_style.mapping.3", "enc_style/map_1")
+    m.heads("enc_style.fcs", "enc_style/head_mu", c.num_cls, c.c_dim)
+    m.heads("enc_style.fcvars", "enc_style/head_logvar", c.num_cls, c.c_dim)
+    m.content_encoder("enc_content", "enc_content", c.content_downsample, c.n_res)
+    m.decoder("dec", "dec", c.content_downsample, c.n_res, c.use_attention)
+    m.mlp("mlp", "mlp")
+    m.txt_encoder("enc_txt", "enc_txt", c.num_layers, c.hidden_size,
+                  c.num_cls, c.c_dim)
+    return m.p.done(m.sd)
 
 
 def load_jax_params(gen, params) -> None:
@@ -139,21 +218,14 @@ def load_jax_params(gen, params) -> None:
 
 def jax_dis_to_state_dict(params, dis_cfg) -> Dict[str, np.ndarray]:
     """JAX MsImageDis params -> a port (reference-named) state dict."""
-    p = flatten_params(params)
-    sd: Dict[str, np.ndarray] = {}
+    m = _Mapper(_Leaves(params))
     for s in range(dis_cfg.num_scales):
         base = f"scale_{s}"
         for j in range(dis_cfg.n_layer):
-            conv = f"{base}/Conv2dBlock_{j}/Conv_0"
-            sd[f"cnns_feat.{s}.{j}.conv.weight"] = p[f"{conv}/kernel"].transpose(3, 2, 0, 1)
-            sd[f"cnns_feat.{s}.{j}.conv.bias"] = p[f"{conv}/bias"]
-            if dis_cfg.norm == "ln" and j > 0:   # the first block has none
-                sd[f"cnns_feat.{s}.{j}.norm.gamma"] = p[f"{base}/Conv2dBlock_{j}/ln_gamma"]
-                sd[f"cnns_feat.{s}.{j}.norm.beta"] = p[f"{base}/Conv2dBlock_{j}/ln_beta"]
-        sd[f"cnns_src.{s}.weight"] = p[f"{base}/src_head/kernel"].transpose(3, 2, 0, 1)
-        sd[f"cnns_src.{s}.bias"] = p[f"{base}/src_head/bias"]
-        sd[f"cnns_cls.{s}.weight"] = p[f"{base}/cls_head/kernel"].transpose(3, 2, 0, 1)
-    return {k: np.array(v, dtype=np.float32, order="C") for k, v in sd.items()}
+            m.block(f"cnns_feat.{s}.{j}", f"{base}/Conv2dBlock_{j}")
+        m.conv(f"cnns_src.{s}", f"{base}/src_head")
+        m.conv(f"cnns_cls.{s}", f"{base}/cls_head")
+    return m.p.done(m.sd)
 
 
 def load_jax_dis_params(dis, params) -> None:
@@ -161,6 +233,62 @@ def load_jax_dis_params(dis, params) -> None:
     sd = jax_dis_to_state_dict(params, dis.cfg)
     dis.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                         strict=True)
+
+
+LEGACY_KINDS = ("StyleEncoderV1", "TxtEncoderV1", "ContentEncoderOld",
+                "AdaINGenV1", "VAEGen")
+
+
+def _legacy(m: _Mapper, kind: str, name: str, path: str, d: dict) -> None:
+    """Map one legacy module (`dwcgan_tpu/models/legacy.py`) at JAX `path`
+    to port names under `name`."""
+    if kind == "StyleEncoderV1":
+        m.style_convs(name, path, d.get("n_downsample", 5))
+        if d["use_map"]:
+            m.dense(_at(name, "mapping.0"), _sub(path, "Dense_0"))
+            m.dense(_at(name, "mapping.3"), _sub(path, "Dense_1"))
+        m.dense(_at(name, "fc"), _sub(path, "fc"))
+        m.dense(_at(name, "fcVar"), _sub(path, "fcVar"))
+    elif kind == "TxtEncoderV1":
+        m.txt_encoder(_at(name, "inner"), _sub(path, "inner"), d["num_layers"],
+                      d["hidden_size"], 1, d["style_dim"])
+    elif kind == "ContentEncoderOld":
+        m.content_encoder(name, path, d["n_downsample"], d["n_res"])
+    elif kind == "AdaINGenV1":
+        _legacy(m, "StyleEncoderV1", _at(name, "enc_style"),
+                _sub(path, "enc_style"), dict(d, n_downsample=5))
+        m.content_encoder(_at(name, "enc_content"), _sub(path, "enc_content"),
+                          d["n_downsample"], d["n_res"])
+        m.decoder(_at(name, "dec"), _sub(path, "dec"), d["n_downsample"],
+                  d["n_res"], d["use_attention"])
+        _legacy(m, "TxtEncoderV1", _at(name, "enc_txt"), _sub(path, "enc_txt"), d)
+        m.mlp(_at(name, "mlp"), _sub(path, "mlp"))
+    elif kind == "VAEGen":
+        m.content_encoder(_at(name, "enc"), _sub(path, "enc"),
+                          d["n_downsample"], d["n_res"])
+        m.decoder(_at(name, "dec"), _sub(path, "dec"), d["n_downsample"],
+                  d["n_res"], False)
+    else:
+        raise ValueError(f"unknown legacy module {kind!r} ({LEGACY_KINDS})")
+
+
+def jax_legacy_to_state_dict(params, kind: str, **dims) -> Dict[str, np.ndarray]:
+    """JAX legacy-module params -> the port module's state dict.  `kind` is
+    one of `LEGACY_KINDS`; `dims` are the module's sizes: `n_downsample`,
+    `n_res`, `use_map`, `use_attention`, `style_dim`, `num_layers`,
+    `hidden_size`, as the kind needs (`models/legacy.py` keeps them as
+    each module's `dims`)."""
+    m = _Mapper(_Leaves(params))
+    _legacy(m, kind, "", "", dims)
+    return m.p.done(m.sd)
+
+
+def load_jax_legacy_params(model, params) -> None:
+    """Load a JAX legacy module's params into its port counterpart
+    (`models/legacy.py`; strict)."""
+    sd = jax_legacy_to_state_dict(params, type(model).__name__, **model.dims)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                          strict=True)
 
 
 def jax_vgg_to_state_dict(params) -> Dict[str, np.ndarray]:

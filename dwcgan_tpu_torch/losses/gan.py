@@ -1,5 +1,7 @@
 """Adversarial, classification, reconstruction, diversity and penalty
-losses (the counterpart of `dwcgan_tpu/losses/gan.py:51-157`).
+losses (the counterpart of `dwcgan_tpu/losses/gan.py:22-157`), with the
+v1 leftovers `focal_loss`, `isometry_constraint` and
+`mode_seeking_constraint`, which no training path calls.
 
 Pure functions over discriminator outputs: per scale `(src, cls)` as
 `MsImageDis` returns them.  Every reduction is fp32.  The penalties
@@ -22,6 +24,22 @@ MULTI_LABEL = ("CelebA", "CUB200")
 def _bce_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean binary cross-entropy with logits, stable form."""
     return F.binary_cross_entropy_with_logits(logits.float(), targets.float())
+
+
+def focal_loss(inputs, targets, alpha: float = 1.0, gamma: float = 2.0,
+               logits: bool = True, use_reduce: bool = True) -> torch.Tensor:
+    """Focal loss (gan.py:31-48, reference networks.py:18-37): alpha * (1 -
+    exp(-bce)) ** gamma * bce elementwise, bce from logits (stable form) or
+    from probabilities (eps 1e-12 inside the logs); the mean when
+    `use_reduce`."""
+    x, t = inputs.float(), targets.float()
+    if logits:
+        bce = torch.clamp(x, min=0) - x * t + torch.log1p(torch.exp(-x.abs()))
+    else:
+        eps = 1e-12
+        bce = -(t * torch.log(x + eps) + (1.0 - t) * torch.log(1.0 - x + eps))
+    out = alpha * (1.0 - torch.exp(-bce)) ** gamma * bce
+    return out.mean() if use_reduce else out
 
 
 def adversarial_d_loss(src_fake, src_real, gan_type: str) -> torch.Tensor:
@@ -107,3 +125,18 @@ def gradient_penalty(dis_apply: Callable, x_hat) -> torch.Tensor:
     """WGAN-GP on interpolates: (||d out / d x|| - 1)^2 (solver.py:291-303)."""
     norm = torch.sqrt(_input_grad(dis_apply, x_hat).square().sum(dim=1) + 1e-12)
     return (norm - 1.0).square().mean()
+
+
+def isometry_constraint(z1, z2, rec_z1, rec_z2) -> torch.Tensor:
+    """|d(z1, z2) - d(rec_z1, rec_z2)|, d the batch mean of the per-sample
+    L1 distance (gan.py:122-129, solver.py:116-121)."""
+    def dist(a, b):
+        return (a.float() - b.float()).abs().sum(dim=1).mean()
+    return (dist(z1, z2) - dist(rec_z1, rec_z2)).abs()
+
+
+def mode_seeking_constraint(im1, im2, z1, z2, eps: float = 1e-5) -> torch.Tensor:
+    """1 / (mean|im1 - im2| / mean|z1 - z2| + eps) (gan.py:131-136,
+    solver.py:123-125)."""
+    ratio = (im1 - im2).abs().mean() / (z1 - z2).abs().mean()
+    return 1.0 / (ratio + eps)

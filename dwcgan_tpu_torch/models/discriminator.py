@@ -10,7 +10,11 @@ per tower, as the JAX module does.  Images come in NHWC, like the JAX module; th
 outputs are per scale `(src [N, h, w, 1] NHWC, cls [N, num_cls])`.
 Parameter names are the reference's (`cnns_feat.{s}.{j}.conv`,
 `cnns_src.{s}`, `cnns_cls.{s}`), so `dwcgan_tpu/interop/torch_import.py`
-reads a port `state_dict()` directly.
+reads a port `state_dict()` directly (norms none, in and ln, and no PReLU:
+the JAX importer takes no other leaf).  Every norm the config accepts
+builds (none, in, ln, bn, sn; the first block of a tower has none), and
+every activation, PReLU included.  With `sn` the spectral norm is
+recomputed on every call, as in JAX.
 """
 
 from __future__ import annotations
@@ -20,8 +24,8 @@ from torch import nn
 
 from dwcgan_tpu_torch.config import Config, DisConfig
 from dwcgan_tpu_torch.device import resolve_device
-from dwcgan_tpu_torch.ops.blocks import (Conv2dBlock, channels_last, conv2d,
-                                         weights_init)
+from dwcgan_tpu_torch.ops.blocks import (CONV_NORMS, Conv2dBlock, channels_last,
+                                         conv2d, fixed_init_params, weights_init)
 from dwcgan_tpu_torch.ops.resize import downsample2x
 
 
@@ -29,9 +33,8 @@ class MsImageDis(nn.Module):
 
     def __init__(self, cfg: DisConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.norm not in ("none", "in", "ln"):
-            raise NotImplementedError(f"dis norm {cfg.norm!r} is not in this "
-                                      "slice of the port (none, in, ln)")
+        if cfg.norm not in CONV_NORMS:
+            raise ValueError(f"Unsupported normalization: {cfg.norm}")
         self.cfg, self.dtype = cfg, dtype
         feats, srcs, clss = [], [], []
         for s in range(cfg.num_scales):
@@ -77,11 +80,15 @@ class MsImageDis(nn.Module):
 @torch.no_grad()
 def init_dis_weights(dis: MsImageDis, seed: int) -> None:
     """Random weights from `seed`: every kernel gaussian(0, 0.02) (the
-    reference re-inits D so, solver.py:74), zero biases, LayerNorm gamma
-    U(0, 1) and beta 0."""
+    reference re-inits D so, solver.py:74; spectral-norm kernels too),
+    zero biases, LayerNorm gamma U(0, 1) and beta 0, batch-norm gamma 1
+    and beta 0, PReLU slopes 0.25."""
     g = torch.Generator().manual_seed(seed)
+    fixed = fixed_init_params(dis)
     for name, p in dis.named_parameters():
-        if name.endswith(".gamma"):
+        if name in fixed:
+            p.fill_(fixed[name])
+        elif name.endswith(".gamma"):
             torch.nn.init.uniform_(p, 0.0, 1.0, generator=g)
         elif name.endswith("weight"):
             weights_init(p, "gaussian", g)

@@ -35,8 +35,8 @@ from dwcgan_tpu_torch.config import Config, GenConfig
 from dwcgan_tpu_torch.device import resolve_device
 from dwcgan_tpu_torch.ops.blocks import (AdaINResBlocks, Conv2dBlock, MLP,
                                          ResBlocks, channels_last, conv2d,
-                                         dropout, linear, pad2d, sigmoid,
-                                         weights_init)
+                                         dropout, fixed_init_params, linear,
+                                         pad2d, sigmoid, weights_init)
 from dwcgan_tpu_torch.ops.lstm import MaskedBiLSTM
 from dwcgan_tpu_torch.ops.norms import check_stats
 from dwcgan_tpu_torch.ops.resize import upsample2x
@@ -301,19 +301,23 @@ class Generator(nn.Module):
 
 
 @torch.no_grad()
-def init_weights(gen: Generator, init_type: str, seed: int) -> None:
+def init_weights(gen: nn.Module, init_type: str, seed: int) -> None:
     """Random weights from `seed`: conv/linear kernels by `init_type` with
     zero biases, LSTM uniform(+-1/sqrt(H)) (one bias, the other zero),
-    N(0, 1) embedding, LayerNorm gamma U(0, 1) and beta 0."""
+    N(0, 1) embedding, LayerNorm gamma U(0, 1) and beta 0, PReLU slopes
+    0.25 (`fixed_init_params`)."""
     g = torch.Generator().manual_seed(seed)
+    fixed = fixed_init_params(gen)
     for name, p in gen.named_parameters():
-        if name.startswith("enc_txt.lstm."):
-            if name.startswith("enc_txt.lstm.bias_hh"):
+        if name in fixed:
+            p.fill_(fixed[name])
+        elif ".lstm." in name:
+            if ".bias_hh" in name:
                 p.zero_()
             else:
-                bound = 1.0 / math.sqrt(gen.cfg.hidden_size)
+                bound = 1.0 / math.sqrt(p.shape[0] // 4)   # [4H, ...]
                 nn.init.uniform_(p, -bound, bound, generator=g)
-        elif name == "enc_txt.embed_tokens.weight":
+        elif name.endswith("embed_tokens.weight"):
             nn.init.normal_(p, 0.0, 1.0, generator=g)
         elif name.endswith(".gamma"):
             nn.init.uniform_(p, 0.0, 1.0, generator=g)

@@ -6,12 +6,14 @@ casts to its compute dtype.  Module attribute names follow the reference
 torch model (`conv`, `norm.gamma`, `fc`, `model.{i}`), so a port
 `state_dict()` has the reference's names.
 
-Norms none, in, ln and adain, and every activation but prelu, forward and
-backward (the norms are `torch.autograd.Function`s, `ops/norms.py`).
-Spectral norm, bn and PReLU come with a later slice and raise here.
-`weights_init` draws the reference's initial weights for the generator and
-the discriminator alike; `dropout` draws its mask from a given
-`torch.Generator`.
+Every norm (none, in, ln, adain, bn, sn) and every activation of the
+config schema, forward and backward.  in, ln and adain are
+`torch.autograd.Function`s over the norm kernels (`ops/norms.py`); batch
+norm, spectral norm and PReLU are plain PyTorch, as JAX computes them
+outside Pallas.  With PReLU the norm kernels run without their fused ReLU
+and the PReLU follows.  `weights_init` draws the reference's initial
+weights for the generator and the discriminator alike; `dropout` draws its
+mask from a given `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dwcgan_tpu_torch.ops.norms import (adain, adain_residual, instance_norm,
+from dwcgan_tpu_torch.ops.norms import (EPS, adain, adain_residual,
+                                        batch_norm_stats_free, instance_norm,
                                         layer_norm_ref)
+from dwcgan_tpu_torch.ops.prng import jax_normal_key0
 from dwcgan_tpu_torch.ops.stem import (stem_applicable, stem_conv7,
                                        stem_fits_vmem)
 
@@ -33,7 +37,9 @@ from dwcgan_tpu_torch.ops.stem import (stem_applicable, stem_conv7,
 CONV_LRELU_SLOPE = 0.1
 LINEAR_LRELU_SLOPE = 0.2
 
-CONV_NORMS = ("none", "in", "ln", "adain")
+CONV_NORMS = ("none", "in", "ln", "adain", "bn", "sn")
+PRELU_INIT = 0.25
+SN_ITERS = 30
 
 
 class _Sigmoid(torch.autograd.Function):
@@ -73,7 +79,43 @@ def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype).item())
 
 
+class PReLU(nn.Module):
+    """Parametric ReLU with one learnable slope (torch's default
+    `nn.PReLU()`: `weight` of shape [1], 0.25 at first), fp32, computed as
+    `dwcgan_tpu/ops/blocks.py:50-58` does: where(x >= 0, x, a * x) with the
+    slope cast to x's dtype.  (`F.prelu` takes the slope branch at x == 0
+    and reduces its weight gradient in another order.)"""
+
+    def __init__(self):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), PRELU_INIT))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+
+
+class _Stateless(nn.Module):
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x)
+
+
+def make_activation(name: str, *, linear_block: bool = False) -> nn.Module:
+    """A block's activation as a module: `PReLU` for "prelu" (its slope is
+    then `activation.weight`, the reference's name), else the function
+    `activation` gives."""
+    if name == "prelu":
+        return PReLU()
+    return _Stateless(activation(name, linear_block=linear_block))
+
+
 def activation(name: str, *, linear_block: bool = False) -> Callable:
+    """A stateless activation by name; "prelu" has a parameter and raises
+    here, as in JAX (a block makes it with `make_activation`)."""
     slope = LINEAR_LRELU_SLOPE if linear_block else CONV_LRELU_SLOPE
     table = {
         "relu": F.relu,
@@ -84,8 +126,7 @@ def activation(name: str, *, linear_block: bool = False) -> Callable:
         "none": lambda x: x,
     }
     if name not in table:
-        raise NotImplementedError(f"activation {name!r} is not in this slice "
-                                  f"of the port ({sorted(table)})")
+        raise ValueError(f"unsupported activation: {name}")
     return table[name]
 
 
@@ -107,6 +148,18 @@ def weights_init(w: torch.Tensor, init_type: str, g: torch.Generator) -> None:
         nn.init.normal_(w, 0.0, math.sqrt(1.0 / fan_in), generator=g)
     else:
         raise ValueError(f"unsupported init: {init_type}")
+
+
+def fixed_init_params(module: nn.Module) -> dict:
+    """{name: value} of the parameters whose JAX init is a constant: PReLU
+    slopes 0.25, batch-norm gamma 1 and beta 0."""
+    fixed = {}
+    for prefix, m in module.named_modules():
+        if isinstance(m, PReLU):
+            fixed[f"{prefix}.weight"] = PRELU_INIT
+        elif isinstance(m, BatchNormAffine):
+            fixed[f"{prefix}.weight"], fixed[f"{prefix}.bias"] = 1.0, 0.0
+    return fixed
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
@@ -159,6 +212,50 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     return F.linear(x, w) + bias.to(x.dtype)
 
 
+_SN_START: dict = {}
+
+
+def _sn_start(n: int, device: torch.device) -> torch.Tensor:
+    """JAX's start vector `normal(PRNGKey(0), (n,))`, normalised as the
+    JAX power iteration does, on `device` (kept per size and device)."""
+    key = (n, str(device))
+    if key not in _SN_START:
+        u = torch.from_numpy(jax_normal_key0(n).copy()).to(device)
+        _SN_START[key] = u / (torch.linalg.vector_norm(u) + 1e-12)
+    return _SN_START[key]
+
+
+def spectral_sigma(w_mat: torch.Tensor, n_iter: int = SN_ITERS) -> torch.Tensor:
+    """The largest singular value of `w_mat` ([fan_in, out], one column
+    per output channel) as `_spectral_normalize` estimates it
+    (dwcgan_tpu/ops/blocks.py:86-113): `n_iter` power iterations in fp32
+    from JAX's fixed start vector, each normalisation adding 1e-12 to the
+    norm, u and v without gradient, then sigma = v . (W u) with gradient
+    in W.  The order of the fan-in rows changes only the summation order."""
+    w_mat = w_mat.float()
+    with torch.no_grad():
+        w = w_mat.detach()
+        u = _sn_start(w.shape[1], w.device)
+        for _ in range(n_iter):
+            v = w @ u
+            v = v / (torch.linalg.vector_norm(v) + 1e-12)
+            u = w.T @ v
+            u = u / (torch.linalg.vector_norm(u) + 1e-12)
+    return v @ (w_mat @ u)
+
+
+def spectral_normalize(w_mat: torch.Tensor, n_iter: int = SN_ITERS) -> torch.Tensor:
+    """w_mat / sigma (`spectral_sigma`), fp32."""
+    return w_mat.float() / spectral_sigma(w_mat, n_iter)
+
+
+def sn_conv_weight(weight: torch.Tensor) -> torch.Tensor:
+    """An OIHW conv kernel over its spectral norm, the matrix taken in
+    JAX's HWIO order ([kh * kw * in, out])."""
+    out = weight.shape[0]
+    return weight / spectral_sigma(weight.permute(2, 3, 1, 0).reshape(-1, out))
+
+
 class LayerNormRef(nn.Module):
     """Per-channel affine of the reference LayerNorm (`gamma`, `beta`)."""
 
@@ -168,10 +265,31 @@ class LayerNormRef(nn.Module):
         self.beta = nn.Parameter(torch.zeros(dim))
 
 
+class BatchNormAffine(nn.Module):
+    """Per-channel affine of the stats-free batch norm, named as torch's
+    `BatchNorm` (`weight` 1, `bias` 0; no running buffers: both packages
+    normalise with the batch's own statistics)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+
+def _check_norm(norm: str, known) -> None:
+    if norm not in known:
+        raise ValueError(f"Unsupported normalization: {norm}")
+
+
 class Conv2dBlock(nn.Module):
     """pad -> conv -> norm -> activation (networks.py:524-585).
 
-    A ReLU after in/adain is fused into the norm kernel.  With `stem` set, a
+    A ReLU after in/adain is fused into the norm kernel; any other
+    activation follows the norm, which then runs without one.  `bn` is the
+    stats-free batch norm after the raw conv; `sn` convolves with the
+    kernel over its spectral norm (`sn_conv_weight`, recomputed on every
+    call as in JAX), `conv.weight` and `conv.bias` holding the raw kernel
+    and bias as JAX's `sn_kernel` and `sn_bias` do.  With `stem` set, a
     block that `stem_applicable` accepts (a 7x7 stride-1 pad-3 conv from 3
     channels, norm in or none, activation relu or none) runs as one fused
     `stem_conv7` call on every image for which `stem_fits_vmem` holds, as
@@ -188,24 +306,27 @@ class Conv2dBlock(nn.Module):
                  activ: str = "relu", pad_type: str = "zero",
                  stem: bool = False):
         super().__init__()
-        if norm not in CONV_NORMS:
-            raise NotImplementedError(f"norm {norm!r} is not in this slice of "
-                                      f"the port ({CONV_NORMS})")
+        _check_norm(norm, CONV_NORMS)
         self.padding, self.pad_type, self.stride = padding, pad_type, stride
         self.norm_type, self.activ = norm, activ
         self.stem = stem and stem_applicable(kernel_size, stride, padding,
                                              in_dim, norm, activ)
         # how the norm forms its variance; `Generator.set_norm_stats` sets it
         self.stats = "2pass"
-        self.act = activation(activ)
         self.conv = nn.Conv2d(in_dim, out_dim, kernel_size, stride, bias=True)
         if norm == "ln":
             self.norm = LayerNormRef(out_dim)
+        elif norm == "bn":
+            self.norm = BatchNormAffine(out_dim)
+        self.activation = make_activation(activ)
 
     def conv_raw(self, x: torch.Tensor) -> torch.Tensor:
         """pad + conv in the activation dtype, channels_last out."""
         x = channels_last(pad2d(x, self.padding, self.pad_type))
-        y = conv2d(x, self.conv.weight, self.conv.bias, stride=self.stride)
+        w = self.conv.weight
+        if self.norm_type == "sn":
+            w = sn_conv_weight(w)
+        y = conv2d(x, w, self.conv.bias, stride=self.stride)
         return channels_last(y)
 
     def forward(self, x, adain_scale=None, adain_bias=None):
@@ -229,23 +350,59 @@ class Conv2dBlock(nn.Module):
             if self.norm_type == "ln":
                 y = layer_norm_ref(y, self.norm.gamma, self.norm.beta,
                                    stats=self.stats)
-        return y if fuse_relu else self.act(y)
+            elif self.norm_type == "bn":
+                y = batch_norm_stats_free(y, self.norm.weight, self.norm.bias)
+        return y if fuse_relu else self.activation(y)
 
 
 class LinearBlock(nn.Module):
-    """fc -> activation (networks.py:587-634); norm none only in this slice."""
+    """fc -> norm -> activation (networks.py:587-634, the JAX block at
+    dwcgan_tpu/ops/blocks.py:253-301).
+
+    `ln` normalises each row over its features with the unbiased std and
+    eps added to the std (`norm.gamma` U(0, 1), `norm.beta` 0); `bn` each
+    feature over the batch, biased variance, eps inside the root
+    (`norm.weight` 1, `norm.bias` 0); `sn` is x @ (w / sigma) + b, `fc`
+    holding the raw weight.  Statistics fp32, the result in x's dtype."""
+
+    NORMS = ("none", "ln", "bn", "sn", "in")
 
     def __init__(self, in_dim: int, out_dim: int, norm: str = "none",
                  activ: str = "relu"):
         super().__init__()
-        if norm != "none":
-            raise NotImplementedError(f"LinearBlock norm {norm!r} is not in "
-                                      "this slice of the port")
+        _check_norm(norm, self.NORMS)
+        if norm == "in":
+            raise NotImplementedError(
+                "LinearBlock norm='in' (InstanceNorm1d on 2-D input) is "
+                "ill-defined in the reference; use bn/ln/none")
+        self.norm_type = norm
         self.fc = nn.Linear(in_dim, out_dim)
-        self.act = activation(activ, linear_block=True)
+        if norm == "ln":
+            self.norm = LayerNormRef(out_dim)
+        elif norm == "bn":
+            self.norm = BatchNormAffine(out_dim)
+        self.activation = make_activation(activ, linear_block=True)
 
     def forward(self, x):
-        return self.act(linear(x, self.fc.weight, self.fc.bias))
+        w = self.fc.weight
+        if self.norm_type == "sn":
+            w = spectral_normalize(w.T).T
+        y = linear(x, w, self.fc.bias)
+        if self.norm_type in ("ln", "bn"):
+            y32 = y.float()
+            if self.norm_type == "ln":
+                mean = y32.mean(dim=-1, keepdim=True)
+                n = y32.shape[-1]
+                var = (y32 - mean).square().sum(-1, keepdim=True) / max(n - 1, 1)
+                y32 = (y32 - mean) / (torch.sqrt(var) + EPS)
+                gamma, beta = self.norm.gamma, self.norm.beta
+            else:
+                mean = y32.mean(dim=0, keepdim=True)
+                var = (y32 - mean).square().mean(dim=0, keepdim=True)
+                y32 = (y32 - mean) / torch.sqrt(var + EPS)
+                gamma, beta = self.norm.weight, self.norm.bias
+            y = (y32 * gamma + beta).to(y.dtype)
+        return self.activation(y)
 
 
 class ResBlock(nn.Module):

@@ -357,3 +357,15 @@ def layer_norm_ref(x, gamma, beta, stats: str = "2pass"):
     if _on_card(x):
         gamma, beta = _f32(gamma), _f32(beta)
     return _LayerNormRef.apply(x, gamma, beta, stats)
+
+
+def batch_norm_stats_free(x, gamma, beta):
+    """Batch norm over (N, H, W) per channel with no running statistics
+    (`dwcgan_tpu/ops/norms.py:175-188`): fp32 statistics, the biased
+    variance, eps inside the root, the result in x's dtype.  Plain PyTorch
+    on every device, as JAX computes it outside Pallas; any memory layout."""
+    x32 = x.to(_up(x))
+    mean = x32.mean(dim=(0, 2, 3), keepdim=True)
+    var = (x32 - mean).square().mean(dim=(0, 2, 3), keepdim=True)
+    y = (x32 - mean) / torch.sqrt(var + EPS)
+    return (y * _bc(gamma) + _bc(beta)).to(x.dtype)

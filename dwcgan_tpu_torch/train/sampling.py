@@ -1,5 +1,5 @@
 """Style sampling, attention blending and style replacement (the
-counterparts of `dwcgan_tpu/train/sampling.py:14-26, 44-72`)."""
+counterparts of `dwcgan_tpu/train/sampling.py`)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,21 @@ def sample_style(comp_means: torch.Tensor, c_dim: int, stddev: float,
                           device=comp_means.device)
     z = comp_means.float()[:, :, None] + stddev * eps.float()
     return z.reshape(n, k * c_dim)
+
+
+def sample_style_flat(mu: torch.Tensor, v_dim: int = 1, stddev: float = 0.5,
+                      generator: Optional[torch.Generator] = None,
+                      eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The v1 sampler (sampling.py:29-41, reference tools.py:49-55):
+    `v_dim` draws of N(mu, stddev) per element of the flat means mu
+    [N, M], element-major -> [N, M * v_dim] fp32.  The standard-normal
+    draws are `eps` ([N, M, v_dim]) when given, else they come from
+    `generator` (on mu's device)."""
+    n, m = mu.shape
+    if eps is None:
+        eps = torch.randn((n, m, v_dim), generator=generator, device=mu.device)
+    z = mu.float()[:, :, None] + stddev * eps.float()
+    return z.reshape(n, m * v_dim)
 
 
 def blend_attention(img, att, x_real, att_on: bool = True):

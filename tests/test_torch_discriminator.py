@@ -107,9 +107,13 @@ def test_seeded_init_is_gaussian_and_reproducible():
 
 
 def test_bn_is_not_in_this_slice():
+    """bn builds now (its parity is in test_torch_block_options.py); a norm
+    the JAX block does not know is rejected with the JAX block's wording."""
     cfg = load_config(CONFIG)
     cfg.dis.norm = "bn"
-    with pytest.raises(NotImplementedError, match="bn"):
+    assert "cnns_feat.0.1.norm.weight" in MsImageDis(cfg.dis).state_dict()
+    cfg.dis.norm = "gn"
+    with pytest.raises(ValueError, match="Unsupported normalization: gn"):
         MsImageDis(cfg.dis)
 
 

@@ -70,6 +70,24 @@ EVAL_MODULES = (
     "cli/import_reference.py", "interop/reference.py", "interop/jax_params.py")
 
 
+# and those of the block options and the legacy family
+LEGACY_MODULES = ("ops/prng.py", "models/legacy.py", "utils/interp.py",
+                  "data/labels.py", "losses/gmm.py", "losses/gan.py")
+
+
+def test_the_scans_cover_the_legacy_modules():
+    scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert set(LEGACY_MODULES) <= scanned
+
+
+def test_build_legacy_generator_defaults_to_the_card(no_card):
+    from dwcgan_tpu_torch.models.legacy import build_legacy_generator
+    for kind in ("AdaINGenV1", "VAEGen"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_legacy_generator(kind, dim=8, n_res=1)
+        assert not build_legacy_generator(kind, device="cpu", dim=8, n_res=1).training
+
+
 def test_the_scans_cover_the_training_cli_modules():
     scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
     assert set(TRAINING_CLI_MODULES) <= scanned

@@ -142,10 +142,7 @@ def test_two_same_seed_runs_log_the_same_rows(tmp_path):
             {k: v for k, v in rb.items() if k not in RATES}
 
 
-def test_resume_continues_the_run_bit_equal(tmp_path, capsys):
-    """4 steps straight equal 2 steps, a stop, `--resume 1` and 2 more:
-    every tensor of the final state, and the logged metrics."""
-    cfg = write_config(tmp_path / "res.yaml", log_iter=1, snapshot_save_iter=100)
+def _resume_bit_equal(tmp_path, capsys, cfg):
     data = ("--procedural_data", "--procedural_size", "48")
     straight, _ = run(cfg, tmp_path / "a", *data, "--max_steps", "4")
     run(cfg, tmp_path / "b", *data, "--max_steps", "2")
@@ -159,6 +156,30 @@ def test_resume_continues_the_run_bit_equal(tmp_path, capsys):
     for ra, rb in zip(rows_a, rows_b):
         assert {k: v for k, v in ra.items() if k not in RATES} == \
             {k: v for k, v in rb.items() if k not in RATES}
+    return straight
+
+
+def test_resume_continues_the_run_bit_equal(tmp_path, capsys):
+    """4 steps straight equal 2 steps, a stop, `--resume 1` and 2 more:
+    every tensor of the final state, and the logged metrics."""
+    cfg = write_config(tmp_path / "res.yaml", log_iter=1, snapshot_save_iter=100)
+    _resume_bit_equal(tmp_path, capsys, cfg)
+
+
+def test_resume_with_prelu_and_spectral_norm_is_bit_equal(tmp_path, capsys):
+    """The same with `gen.activ: prelu` and `dis.norm: sn`: the PReLU slopes
+    and the raw spectral-norm kernels go through Adam, EMA and the
+    checkpoint like any other parameter."""
+    with open(CONFIG) as f:
+        base = yaml.safe_load(f)
+    cfg = write_config(tmp_path / "res.yaml", log_iter=1, snapshot_save_iter=100,
+                       gen={**base["gen"], "activ": "prelu"},
+                       dis={**base["dis"], "norm": "sn"})
+    state = _resume_bit_equal(tmp_path, capsys, cfg)
+    slopes = [p for n, p in state.gen.named_parameters()
+              if n.endswith("activation.weight")]
+    assert slopes and all(float(p) != 0.25 for p in slopes)
+    assert "cnns_feat.0.1.conv.weight" in state.dis.state_dict()
 
 
 def test_pretrained_embeddings_load_and_stay_frozen(tmp_path, capsys):
