@@ -135,6 +135,39 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    then bf16 at batch 32 with exactly 11 / 4 / 4 / 2 launches per batch
    and no other, finite output in [-1, 1], images/s (10 batches after 4)
    and peak memory; the phase's wall time.
+15. data parallel (`parallel/mesh.py`): (a) a one-rank NCCL group in this
+   process (`file://` rendezvous) and the flagship bf16 step at batch 16
+   through `DataAxis` and `all_reduce_grads`, which run the collective
+   because a group exists: in each of 3 steps the flat G and D gradient
+   buffers bit-equal before and after it (a SUM over one rank divided by
+   1), exactly phase 7's launches, the metrics' mean relative difference
+   from a plain run within twice that of two plain runs (the card's
+   reflect-pad backward adds with atomics), the all-reduces' CUDA-event ms
+   per step and their fp32 bytes, 12 steps timed beside phase 7's median;
+   (b) two gloo ranks on the one card (`chip_smoke.py --dp-worker RANK
+   TMP`, `file://` rendezvous), the flagship config in fp32 (TF32 off),
+   global batch 4, 2 steps with `state.rng`'s draws and dropout, against
+   one process at batch 4 (run twice, its own spread logged): every
+   metric within rtol 1e-4 (the second step's gradient norms 1e-3: they
+   are taken at parameters that Adam's first step moved apart where a
+   gradient is rounding noise), every parameter within rtol 1e-4 plus
+   Adam's largest two updates each way (4.108 lr), the ranks bit-equal to
+   each other (NCCL with two
+   ranks needs two cards: not run, and said so); (c) `cli/train.py` under
+   `torch.distributed.run --standalone --nproc_per_node 1` for 2 steps on
+   phase 12's config: the mesh line, 2 finite metric rows, checkpoint 2.
+16. `norm_compute: bf16`: rows 1-3 with `arith` on at every flagship
+   serving site and rows 1-3 and 5-6 at every training site, both stats
+   modes: y bit-equal to the plain bf16 chain at the kernel's own
+   statistics (`norms.bf16_chain_plain`) and within BF16_ULPS of the plain
+   bf16-arithmetic forward wherever both sides' statistics round alike,
+   the backward within phase 5's bf16 tolerance of the plain one, two runs
+   bit-equal, one CUDA kernel a call, the recomputed ReLU mask equal to y >
+   0; each site's device ms (CUDA graph, cold L2, as phase 2) beside the
+   same site with `arith` off; then the flagship step with `norm_compute:
+   bf16` (phase 7's launches, every one of rows 1-3 and 5-6 in the bf16
+   arithmetic, 12 steps beside phase 7's median) and serving at batch 32
+   (11 / 4 / 4 / 2, images/s beside phase 4's).
 
 The last lines are the `kernels` JSON (nine kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
@@ -146,7 +179,11 @@ kernels (rows 1-7, each one cluster kernel per call) with `kernels_per_call`
 `plans` at the flagship sites, the LayerNorm's rows with `nearest_call_ms`;
 the stem entries carry phase 8's HMMA counts of the kernels they run as
 `hmma`; rows 1-7 carry phase 14's launches per block-options step as
-`launches_block_options`, rows 1-4 per legacy batch as `launches_legacy`),
+`launches_block_options`, rows 1-4 per legacy batch as `launches_legacy`,
+and phase 15's per step of the NCCL data axis as `launches_data_parallel`;
+rows 1-3 and 5-6 carry phase 16's `norm_compute_bf16`: the bf16
+arithmetic's ms per batch / step beside the same sites' `arith`-off ms
+of this run, its largest error and its launches),
 the nvidia-smi line and `{"ok": true, "device": {...}}`.  Without
 a card it exits 1 and prints no result.
 
@@ -176,6 +213,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from dwcgan_tpu_torch.cli import convert_inception, evaluate, import_reference
@@ -197,12 +235,14 @@ from dwcgan_tpu_torch.models.generator import build_generator
 from dwcgan_tpu_torch.models.legacy import build_legacy_generator
 from dwcgan_tpu_torch.ops import blocks, norms, stem
 from dwcgan_tpu_torch.ops.cuda import build, kernels
+from dwcgan_tpu_torch.parallel.mesh import DataAxis
 from dwcgan_tpu_torch.text.synthesis import TextSynthesizer
 from dwcgan_tpu_torch.text.vocab import Vocab, encode_commands
 from dwcgan_tpu_torch.train.checkpoint import (CheckpointManager,
                                                checkpoint_header, checkpoint_steps)
 from dwcgan_tpu_torch.train.sampler import make_infer_fn, make_sample_fn
 from dwcgan_tpu_torch.train.sampling import blend_attention
+from dwcgan_tpu_torch.train import step as step_module
 from dwcgan_tpu_torch.train.step import make_train_step
 
 ROOT = Path(__file__).resolve().parent
@@ -252,6 +292,24 @@ OPS_PER_ELEM = {"instance_norm": 6, "adain": 8, "adain_residual": 9,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count (and its count in the bf16 arithmetic)
+    to 0, just before a path is driven."""
+    for counts in (kernels.LAUNCHES, kernels.ARITH_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def check_arith_launches(launches, norm_compute) -> None:
+    """Under `norm_compute: bf16` every launch of rows 1-3 and 5-6 ran in
+    the bf16 arithmetic; otherwise none did."""
+    want = {k: launches[k] if norm_compute == "bf16" else 0
+            for k in kernels.ARITH_LAUNCHES}
+    if kernels.ARITH_LAUNCHES != want:
+        raise AssertionError(f"launches in the bf16 arithmetic "
+                             f"{kernels.ARITH_LAUNCHES} != {want}")
 
 
 def card_line() -> str:
@@ -337,21 +395,24 @@ def cold_copies(args):
                      for _ in range(max(0, math.ceil(COLD_L2_BYTES / in_bytes) - 1))]
 
 
-def run_kernel_stats(kernel, args, relu, stats, plan=None):
+def run_kernel_stats(kernel, args, relu, stats, plan=None, arith=False):
     """The forward kernel: (output, saved statistics); `plan`: its layout
-    if not `kernels.fwd_plan`'s (the plan sweeps)."""
+    if not `kernels.fwd_plan`'s (the plan sweeps); `arith`: rows 1-3 in the
+    bf16 arithmetic (phase 16)."""
     two_pass = stats == "2pass"
     if kernel == "instance_norm":
-        return kernels.instance_norm(*args, relu=relu, two_pass=two_pass, plan=plan)
+        return kernels.instance_norm(*args, relu=relu, two_pass=two_pass, plan=plan,
+                                     arith=arith)
     if kernel == "adain":
-        return kernels.adain(*args, relu=relu, two_pass=two_pass, plan=plan)
+        return kernels.adain(*args, relu=relu, two_pass=two_pass, plan=plan,
+                             arith=arith)
     if kernel == "adain_residual":
-        return kernels.adain_residual(*args, two_pass=two_pass, plan=plan)
+        return kernels.adain_residual(*args, two_pass=two_pass, plan=plan, arith=arith)
     return kernels.layer_norm_ref(*args, two_pass=two_pass, plan=plan)
 
 
-def run_kernel(kernel, args, relu, stats, plan=None):
-    return run_kernel_stats(kernel, args, relu, stats, plan)[0]
+def run_kernel(kernel, args, relu, stats, plan=None, arith=False):
+    return run_kernel_stats(kernel, args, relu, stats, plan, arith)[0]
 
 
 # the forwards, each one cluster kernel per call (rows 1-4): (op, residual)
@@ -590,16 +651,18 @@ STEP_RTOL = 1e-3      # fp32 training step, card vs CPU
 TIMED_STEPS = 12
 
 
-def run_bwd(counter, x, gr, st, params, relu, plan=None):
+def run_bwd(counter, x, gr, st, params, relu, plan=None, arith=False):
     """The backward kernel of a site (x: the normalised activation; params:
     its affine): the gradients of its inputs.  `plan`: the LayerNorm's
-    layout if not `kernels.ln_bwd_plan`'s (the plan sweep)."""
+    layout if not `kernels.ln_bwd_plan`'s (the plan sweep); `arith`: rows
+    5-6 in the bf16 arithmetic (phase 16)."""
     if counter == "instance_norm_bwd":
-        return (kernels.instance_norm_bwd(x, gr, st, relu=relu),)
+        return (kernels.instance_norm_bwd(x, gr, st, relu=relu, arith=arith),)
     if counter == "adain_bwd":
-        return kernels.adain_bwd(x, gr, st, params[0], params[1], relu=relu)
+        return kernels.adain_bwd(x, gr, st, params[0], params[1], relu=relu,
+                                 arith=arith)
     if counter == "adain_residual_bwd":
-        return kernels.adain_bwd(x, gr, st, params[0], residual=True)
+        return kernels.adain_bwd(x, gr, st, params[0], residual=True, arith=arith)
     return kernels.layer_norm_ref_bwd(x, gr, st, params[0], plan=plan)
 
 
@@ -1280,14 +1343,15 @@ def phase_step_fp32(stem=False, options=False):
     return worst
 
 
-def phase_train_bf16(card, stem=False, options=False):
+def phase_train_bf16(card, stem=False, options=False, norm_compute="fp32"):
     """The flagship step through cli/train.py's trainer (`stem`: with
     `stem_pallas` on, phase 10; `options`: with the block options, phase
     14, which also checks that the PReLU slopes and the spectral-norm
-    kernels moved and times the spectral norm's share of a step).  Returns
-    (launches per step, timing)."""
+    kernels moved and times the spectral norm's share of a step;
+    `norm_compute` "bf16": phase 16, every launch of rows 1-3 and 5-6 in
+    the bf16 arithmetic).  Returns (launches per step, timing)."""
     cfg = load_config(str(CONFIG))
-    cfg.stem_pallas = stem
+    cfg.stem_pallas, cfg.norm_compute = stem, norm_compute
     if options:
         block_options(cfg)
     expected = STEM_TRAIN_LAUNCHES if stem else EXPECTED_TRAIN_LAUNCHES
@@ -1300,12 +1364,12 @@ def phase_train_bf16(card, stem=False, options=False):
     for i in range(3):
         step(state, batches[i % len(batches)])
     torch.cuda.synchronize()
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
+    reset_launches()
     norms.GRAD_COPIES.clear()
     m = step(state, batches[3 % len(batches)])
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    check_arith_launches(launches, norm_compute)
     metrics = {k: float(v) for k, v in m.items()}
     log(f"train_bf16: stem_pallas {stem}, {cfg.compute_dtype}, norm_stats "
         f"{cfg.norm_stats}, batch {cfg.batch_size}, vgg_w {cfg.vgg_w}, launches "
@@ -1342,7 +1406,7 @@ def phase_train_bf16(card, stem=False, options=False):
     if options:
         timing.update(spectral_norm_share(state, step, batches[0]))
     log(f"train_bf16: stem_pallas {stem}, block options {bool(options)}, "
-        f"{TIMED_STEPS} steps of batch "
+        f"norm_compute {norm_compute}, {TIMED_STEPS} steps of batch "
         f"{cfg.batch_size} after 4: CUDA-event ms per step median {med:.3f}, "
         f"min {ev[0]:.3f}, max {ev[-1]:.3f} -> {timing['images_per_s']:.2f} "
         f"images/s at the median; peak memory {peak / 2**20:.0f} MiB; last "
@@ -1369,7 +1433,7 @@ class _CudnnLSTM(torch.nn.Module):
         self.lstm.to(next(lstm.parameters()).device, torch.bfloat16)
         self.lstm.flatten_parameters()
 
-    def forward(self, x, lengths, rng=None):
+    def forward(self, x, lengths, rng=None, rows=None):
         packed = torch.nn.utils.rnn.pack_padded_sequence(
             x, lengths.cpu(), batch_first=True, enforce_sorted=False)
         _, (h, c) = self.lstm(packed)
@@ -2176,24 +2240,26 @@ def phase_slice_fp32(vocab, stem=False):
     return diff
 
 
-def phase_serve_bf16(vocab, card, stem=False):
-    """Serving at batch 32 in bf16 (`stem`: with `stem_pallas` on, phase 9).
-    Returns (launches per batch, timing)."""
+def phase_serve_bf16(vocab, card, stem=False, norm_compute="fp32"):
+    """Serving at batch 32 in bf16 (`stem`: with `stem_pallas` on, phase 9;
+    `norm_compute` "bf16": phase 16).  Returns (launches per batch,
+    timing)."""
     cfg = load_config(str(CONFIG))
-    cfg.stem_pallas = stem
+    cfg.stem_pallas, cfg.norm_compute = stem, norm_compute
     expected = STEM_SERVE_LAUNCHES if stem else SERVE_LAUNCHES
     dev = torch.device("cuda")
     gen = build_generator(cfg, vocab.size, device=dev, seed=SEED)
     infer = make_infer_fn(cfg, gen)
     imgs, cmds = synthetic_requests(BATCH, cfg.image_size, SEED + 2)
 
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
+    reset_launches()
     out = translate_batch(infer, imgs, cmds, vocab, cfg.max_text_len, dev)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    check_arith_launches(launches, norm_compute)
     log(f"serve_bf16: stem_pallas {stem}, {cfg.compute_dtype}, norm_stats "
-        f"{cfg.norm_stats}, batch {BATCH}, launches per batch {launches}")
+        f"{cfg.norm_stats}, norm_compute {norm_compute}, batch {BATCH}, "
+        f"launches per batch {launches}")
     if launches != expected:
         raise AssertionError(f"launches {launches} != {expected}")
     if tuple(out.shape) != (BATCH, cfg.image_size, cfg.image_size, 3) \
@@ -2238,8 +2304,8 @@ def phase_serve_bf16(vocab, card, stem=False):
     timing = dict(median_ms=med, images_per_s=BATCH / (med / 1e3),
                   peak_mib=peak / 2**20, encode_ms=enc, encode_txt_ms=txt,
                   decode_ms=dec)
-    log(f"serve_bf16: stem_pallas {stem}, {SERVE_BATCHES} batches of {BATCH} "
-        f"after 3 warm-up: "
+    log(f"serve_bf16: stem_pallas {stem}, norm_compute {norm_compute}, "
+        f"{SERVE_BATCHES} batches of {BATCH} after 3 warm-up: "
         f"CUDA-event ms per batch median {med:.3f}, min {ev[0]:.3f}, max "
         f"{ev[-1]:.3f} -> {BATCH / (med / 1e3):.1f} images/s at the median; "
         f"host wall ms median {wall[len(wall) // 2]:.3f}, max {wall[-1]:.3f}; "
@@ -2247,6 +2313,473 @@ def phase_serve_bf16(vocab, card, stem=False):
         f"{txt:.3f} ms, decode {dec:.3f} ms; peak memory {peak / 2**20:.0f} "
         f"MiB; card {card}")
     return launches, timing
+
+
+# ---------------------------------------------------------------- phase 15
+
+DP_BATCH = TRAIN_BATCH    # (a): the flagship step, one NCCL rank
+DP_CHECKED = 3            # (a): steps whose all-reduce is checked bit for bit
+DP_WORLD = 2              # (b): gloo ranks on the one card
+DP_GLOBAL = 4             # (b): the global batch, 2 a rank
+DP_STEPS = 2
+DP_RTOL = 1e-4            # (b): two ranks against one process, fp32, TF32 off
+# (b): the gradient norms after the first step, taken at parameters that
+# Adam's first step moved apart by up to 2 lr where a gradient is rounding
+# noise (a conv bias in front of an instance norm; a few weights)
+DP_LATER_NORM_RTOL = 1e-3
+GRAD_NORMS = ("grad_gen_norm", "grad_dis_norm")
+# the largest |m_hat / sqrt(v_hat)| of Adam's first and second steps at the
+# flagship's betas (0.5, 0.999): 1, then 1.0539 (the second gradient twice
+# the first); a parameter whose gradient is rounding noise can move that
+# many lr a step one way on one side and the other way on the other
+ADAM_STEP_MAX = (1.0, 1.054)
+DP_SPREAD = 2.0           # (a): of two plain runs' mean relative metric spread
+DP_TIMEOUT = 600          # (b), (c): seconds a subprocess may take
+
+
+class AllReduceProbe:
+    """Wraps `train/step.py`'s `all_reduce_grads`: CUDA events around each
+    call (the flat copy in, the collective, the copy back), and, while
+    `check` is on, every flat gradient buffer before and after, which must
+    be bit-equal (a SUM over one rank divided by 1)."""
+
+    def __init__(self):
+        self.check, self.events, self.checked = False, [], 0
+
+    def __enter__(self):
+        self._real = step_module.all_reduce_grads
+
+        def probed(params, axis):
+            params = list(params)
+            before = None
+            if self.check:
+                before = torch.cat([p.grad.reshape(-1).float() if p.grad is not None
+                                    else torch.zeros(p.numel(), device=p.device)
+                                    for p in params])
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._real(params, axis)
+            stop.record()
+            self.events.append((start, stop))
+            if before is not None:
+                after = torch.cat([p.grad.reshape(-1).float() for p in params])
+                if not torch.equal(before, after):
+                    raise AssertionError("the one-rank all-reduce changed a gradient")
+                self.checked += 1
+
+        step_module.all_reduce_grads = probed
+        return self
+
+    def __exit__(self, *exc):
+        step_module.all_reduce_grads = self._real
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def step_metrics(step, state, batches, steps):
+    """`steps` steps' metrics as rows of `metric_diff` (a "step" key each)."""
+    return [{"step": i, **{k: float(v) for k, v in
+                           step(state, batches[i % len(batches)]).items()}}
+            for i in range(steps)]
+
+
+def phase_dp_nccl(card, train_off) -> dict:
+    """Phase 15 (a): the flagship bf16 step at batch 16 through `DataAxis`
+    and `all_reduce_grads` with a one-rank NCCL group in this process."""
+    cfg = load_config(str(CONFIG))
+    cfg.batch_size = DP_BATCH
+    dev = torch.device("cuda")
+    batches = synthetic_batches(cfg, dev, seed=SEED + 9)
+    # two plain runs (no group): the spread the card's own atomics give
+    plain = []
+    for _ in range(2):
+        state, step, _ = build_trainer(cfg, dev, seed=SEED)
+        plain.append(step_metrics(step, state, batches, DP_CHECKED))
+    del state, step
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            axis = DataAxis.from_config(cfg)
+            if not (axis.grouped and axis.world == 1 and axis.rows is not None):
+                raise AssertionError(f"data axis {axis}")
+            state, step, _ = build_trainer(cfg, dev, seed=SEED, axis=axis)
+            n_bytes = 4 * sum(p.numel() for net in (state.gen, state.dis)
+                              for p in net.parameters() if p.requires_grad)
+            with AllReduceProbe() as probe:
+                probe.check = True
+                reset_launches()
+                dp = step_metrics(step, state, batches, 1)
+                torch.cuda.synchronize()
+                launches = dict(kernels.LAUNCHES)
+                dp += [dict(r, step=r["step"] + 1)
+                       for r in step_metrics(step, state, batches[1:], DP_CHECKED - 1)]
+                probe.check = False
+                if probe.checked != 2 * DP_CHECKED:
+                    raise AssertionError(f"{probe.checked} all-reduces checked")
+                if launches != EXPECTED_TRAIN_LAUNCHES:
+                    raise AssertionError(f"launches {launches} != {EXPECTED_TRAIN_LAUNCHES}")
+                probe.events.clear()
+                times = []
+                for i in range(TIMED_STEPS):
+                    start = torch.cuda.Event(enable_timing=True)
+                    stop = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    step(state, batches[i % len(batches)])
+                    stop.record()
+                    stop.synchronize()
+                    times.append(start.elapsed_time(stop))
+                ar = probe.ms()
+        finally:
+            dist.destroy_process_group()
+    spread, got = metric_diff(plain[0], plain[1])[0], metric_diff(plain[0], dp)[0]
+    if not all(math.isfinite(v) for r in dp for v in r.values()) \
+            or got > DP_SPREAD * spread + 1e-6:
+        raise AssertionError(f"NCCL step's metrics {got} from a plain run's, "
+                             f"beyond {DP_SPREAD} x the plain runs' spread {spread}")
+    per_step = [a + b for a, b in zip(ar[0::2], ar[1::2])]
+    med = lambda v: sorted(v)[len(v) // 2]
+    result = dict(checked_steps=DP_CHECKED, launches=launches,
+                  metric_diff=got, plain_spread=spread, allreduce_bytes=n_bytes,
+                  allreduce_ms=med(per_step), allreduce_ms_min=min(per_step),
+                  allreduce_ms_max=max(per_step), step_ms=med(times),
+                  step_ms_min=min(times), step_ms_max=max(times),
+                  phase7_step_ms=train_off["median_ms"])
+    log(f"dp_nccl: the flagship bf16 step at batch {DP_BATCH} through DataAxis and "
+        f"all_reduce_grads in a one-rank NCCL group: the flat G and D gradient "
+        f"buffers bit-equal before and after the collective in each of "
+        f"{DP_CHECKED} steps; launches per step {launches} (phase 7's); mean "
+        f"relative metric diff from a plain run {got:.3e} (two plain runs "
+        f"{spread:.3e}); the two all-reduces per step (flat copy, NCCL "
+        f"all_reduce of {n_bytes / 2**20:.1f} MiB fp32, copy back; CUDA events) "
+        f"median {result['allreduce_ms']:.3f} ms (min "
+        f"{result['allreduce_ms_min']:.3f}, max {result['allreduce_ms_max']:.3f}); "
+        f"{TIMED_STEPS} steps: median {result['step_ms']:.3f} ms (min "
+        f"{result['step_ms_min']:.3f}, max {result['step_ms_max']:.3f}), phase 7 "
+        f"{train_off['median_ms']:.3f}; card {card}")
+    return result
+
+
+def dp_config():
+    cfg = load_config(str(CONFIG))
+    cfg.compute_dtype, cfg.batch_size = "float32", DP_GLOBAL
+    return cfg
+
+
+def dp_run(rank: int, world: int):
+    """DP_STEPS fp32 steps of the flagship config on this rank's rows of
+    the global batch of DP_GLOBAL (draws from `state.rng`, dropout on):
+    (metrics per step, the nets' parameters on the host)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dp_config()
+    axis = DataAxis.from_config(cfg)
+    if (axis.rank, axis.world) != (rank, world):
+        raise AssertionError(f"data axis {axis}, not rank {rank} of {world}")
+    dev = torch.device("cuda")
+    state, step, _ = build_trainer(cfg, dev, seed=SEED, axis=axis)
+    n = DP_GLOBAL // world
+    rows = lambda b: type(b)(*(t[rank * n:(rank + 1) * n] for t in b))
+    batches = [rows(b) for b in synthetic_batches(cfg, dev, n=DP_STEPS, seed=SEED + 40)]
+    metrics = step_metrics(step, state, batches, DP_STEPS)
+    params = {f"{net}.{k}": v.detach().cpu() for net in ("gen", "dis")
+              for k, v in getattr(state, net).state_dict().items()}
+    return metrics, params
+
+
+def dp_worker(rank: int, tmp: str) -> int:
+    """One gloo rank of phase 15 (b), run as `chip_smoke.py --dp-worker
+    RANK TMP` by `phase_dp_gloo`."""
+    if not torch.cuda.is_available():
+        return 1
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=DP_WORLD)
+    try:
+        metrics, params = dp_run(rank, DP_WORLD)
+        torch.save({"metrics": metrics, "params": params}, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(cmds, env=None):
+    """Start the commands together; fail with their output if one fails or
+    outlives DP_TIMEOUT; stop every one of them."""
+    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        if p.returncode:
+            raise AssertionError(f"{' '.join(p.args)} failed ({p.returncode}):\n"
+                                 f"{out[-3000:]}")
+    return outs
+
+
+def phase_dp_gloo(card) -> dict:
+    """Phase 15 (b): two gloo ranks on the one card against one process on
+    the global batch, fp32, TF32 off."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        run_ranks([[sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker",
+                    str(r), tmp] for r in range(DP_WORLD)])
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(DP_WORLD)]
+    want_m, want_p = dp_run(0, 1)
+    again_m = dp_run(0, 1)[0]   # the one process again: the card's own spread
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr = dp_config().lr
+    atol = 2 * lr * sum(ADAM_STEP_MAX[:DP_STEPS])
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-6)
+    # per step, the largest relative difference of each metric: the ranks
+    # against one process, and one process against itself
+    dev = [{k: max(rel(r["metrics"][i][k], w) for r in ranks) for k, w in want.items()}
+           for i, want in enumerate(want_m)]
+    repeat = [{k: rel(again[k], w) for k, w in want.items()}
+              for again, want in zip(again_m, want_m)]
+    worst = lambda rows: [max(r.items(), key=lambda kv: kv[1]) for r in rows]
+    log(f"dp_gloo: largest relative metric difference per step, two ranks vs one "
+        f"process {worst(dev)}, one process run twice {worst(repeat)}; gradient "
+        f"norms {[{k: r[k] for k in GRAD_NORMS} for r in dev]} and "
+        f"{[{k: r[k] for k in GRAD_NORMS} for r in repeat]}")
+    worst_p = 0.0
+    for i, (d, want) in enumerate(zip(dev, want_m)):
+        for k, w in want.items():
+            rtol = DP_LATER_NORM_RTOL if i and k in GRAD_NORMS else DP_RTOL
+            if d[k] * max(abs(w), 1e-6) > rtol * abs(w) + 1e-6:
+                raise AssertionError(f"two ranks vs one process, step {i} {k}: "
+                                     f"{d[k]:.3e} relative (rtol {rtol})")
+    worst_m = max(max(d.values()) for d in dev)
+    for r in ranks:
+        for k, w in want_p.items():
+            err = (r["params"][k] - w).abs()
+            worst_p = max(worst_p, float((err / w.abs().clamp_min(1e-6)).max()))
+            if not bool((err <= DP_RTOL * w.abs() + atol).all()):
+                raise AssertionError(f"two ranks vs one process, parameter {k}: "
+                                     f"max abs diff {float(err.max()):.3e}")
+    bad = [k for k, v in ranks[0]["params"].items() if not torch.equal(v, ranks[1]["params"][k])]
+    if bad:
+        raise AssertionError(f"the ranks' parameters differ: {bad[:8]}")
+    result = dict(world=DP_WORLD, global_batch=DP_GLOBAL, steps=DP_STEPS,
+                  worst_metric_rel=worst_m, worst_per_step=worst(dev),
+                  repeat_per_step=worst(repeat), worst_param_rel=worst_p,
+                  params_atol=atol, ranks_bit_equal=True, ranks_s=ranks_s)
+    log(f"dp_gloo: {DP_WORLD} gloo ranks on one card (cuda:0 each), flagship fp32 "
+        f"(TF32 off), global batch {DP_GLOBAL}, {DP_STEPS} steps with state.rng's "
+        f"draws and dropout: every metric within rtol {DP_RTOL} of one process on "
+        f"the global batch (the later steps' gradient norms {DP_LATER_NORM_RTOL}; "
+        f"worst {worst_m:.3e}), every parameter within rtol "
+        f"{DP_RTOL} + atol {atol:.1e}, the ranks' parameters bit-equal; "
+        f"{ranks_s:.1f} s for the ranks' processes.  NCCL with two ranks needs "
+        f"two cards; this machine has {torch.cuda.device_count()}: not run; card {card}")
+    return result
+
+
+def phase_dp_launcher(card) -> dict:
+    """Phase 15 (c): `cli/train.py` under `torch.distributed.run
+    --nproc_per_node 1` for 2 steps, on phase 12's config."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        cfg_path = cli_config(tmp)
+        t0 = time.perf_counter()
+        out = run_ranks([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "1", "-m", "dwcgan_tpu_torch.cli.train",
+                          "--config", cfg_path, "--procedural_data",
+                          "--procedural_size", str(CLI_PROCEDURAL), "--max_steps", "2",
+                          "--output_path", str(tmp / "run")]])[0]
+        secs = time.perf_counter() - t0
+        with open(tmp / "run" / "logs" / CLI_NAME / "metrics.jsonl") as f:
+            rows = [json.loads(ln) for ln in f]
+        ckpts = checkpoint_steps(str(tmp / "run" / "outputs" / CLI_NAME / "checkpoints"))
+    if "mesh: {'data': 1, 'model': 1} over 1 devices" not in out \
+            or "Finish training" not in out or [r["step"] for r in rows] != [1, 2] \
+            or ckpts != [2] or not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"the launcher run: rows {rows}, checkpoints {ckpts}:\n"
+                             f"{out[-3000:]}")
+    log(f"dp_launcher: python -m torch.distributed.run --standalone "
+        f"--nproc_per_node 1 -m dwcgan_tpu_torch.cli.train, 2 steps: the mesh line, "
+        f"2 finite metric rows, checkpoint 2; {secs:.1f} s; card {card}")
+    return dict(seconds=secs)
+
+
+def phase_data_parallel(card, train_off) -> dict:
+    """Phase 15: data parallel (module docstring)."""
+    return dict(nccl=phase_dp_nccl(card, train_off), gloo=phase_dp_gloo(card),
+                launcher=phase_dp_launcher(card))
+
+
+# ---------------------------------------------------------------- phase 16
+
+ARITH_ROWS = ROWS_1_3
+ARITH_BWD = ("instance_norm_bwd", "adain_bwd", "adain_residual_bwd")
+
+
+def arith_plain(kernel, args, relu, stats):
+    if kernel == "instance_norm":
+        return norms.instance_norm_plain(args[0], relu, stats, "bf16")
+    if kernel == "adain":
+        return norms.adain_plain(*args, relu=relu, stats=stats, arith="bf16")
+    return norms.adain_residual_plain(*args, stats=stats, arith="bf16")
+
+
+def check_arith_forward(kernel, args, relu, stats, label):
+    """Rows 1-3 with arith on against the plain bf16 arithmetic on the card:
+    bit-equal to the plain chain at the kernel's own statistics, within
+    BF16_ULPS of the plain forward wherever both sides' statistics round to
+    the same bf16 values (returns how many (n, c) do not), two runs
+    bit-equal, one CUDA kernel per call."""
+    y, st = run_kernel_stats(kernel, args, relu, stats, arith=True)
+    again = run_kernel_stats(kernel, args, relu, stats, arith=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, again[0]) and torch.equal(st, again[1])):
+        raise AssertionError(f"{label}: two runs differ")
+    per_call = kernels_per_call(lambda: run_kernel_stats(kernel, args, relu, stats,
+                                                         arith=True))
+    if per_call != 1:
+        raise AssertionError(f"{label}: {per_call} kernels per call")
+    x = args[1] if kernel == "adain_residual" else args[0]
+    affine = tuple(args[-2:]) if kernel != "instance_norm" else (None, None)
+    res = args[0] if kernel == "adain_residual" else None
+    if not torch.equal(y, norms.bf16_chain_plain(x, st, *affine, relu=relu, residual=res)):
+        raise AssertionError(f"{label}: not the bf16 chain at its own statistics")
+    mean, var = norms._moments_hw(x.float(), stats)
+    bf = lambda t: t.flatten(1).to(torch.bfloat16)
+    same = (bf(st[:, 0]) == bf(mean)) & (bf(st[:, 1]) == bf(torch.rsqrt(var + norms.EPS)))
+    plain = arith_plain(kernel, args, relu, stats)
+    keep = same[:, :, None, None].expand_as(y)
+    err = (y.float() - plain.float()).abs()[keep]
+    tol = (BF16_ULPS * bf16_ulp(plain) + FP32_ATOL)[keep]
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{label}: beyond {BF16_ULPS} ulps of the plain bf16 "
+                             f"arithmetic, max {float((err - tol).max()):.3e}")
+    return y, st, float(err.max()) if err.numel() else 0.0, int((~same).sum())
+
+
+def check_arith_site(kernel, shape, relu, stats, g, counter=None):
+    """Phase 16 at one site (`counter`: its backward too, a training site)."""
+    label = f"{kernel} {shape} bf16-arith {stats} relu={relu}"
+    args = site_inputs(kernel, shape, torch.bfloat16, g)
+    out, st, err, flips = check_arith_forward(kernel, args, relu, stats, label)
+    copies = cold_copies(args)
+    row = dict(kernel=kernel, shape=list(shape), relu=relu, stats=stats,
+               max_abs_err=err, stat_flips=flips,
+               ms=device_ms(lambda i: run_kernel(kernel, copies[i % len(copies)], relu,
+                                                 stats, arith=True)),
+               ms_fp32_arith=device_ms(lambda i: run_kernel(
+                   kernel, copies[i % len(copies)], relu, stats)))
+    del copies
+    if counter is None:
+        return row
+    x = args[1] if kernel == "adain_residual" else args[0]
+    params = args[2:] if kernel == "adain_residual" else args[1:]
+    gr = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    blabel = f"{counter} {shape} bf16-arith {stats} relu={relu}"
+    got = run_bwd(counter, x, gr, st, params, relu, arith=True)
+    again = run_bwd(counter, x, gr, st, params, relu, arith=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{blabel}: two runs differ")
+    mask = out if relu else None
+    if counter == "instance_norm_bwd":
+        want = (norms.instance_norm_bwd_plain(x, gr, mask, stats, "bf16"),)
+    else:
+        want = norms.adain_bwd_plain(x, params[0], gr, mask, stats, "bf16")
+    bwd_err, bwd_rel = check_bwd_close(blabel, got, want, torch.bfloat16)
+    per_call = kernels_per_call(lambda: run_bwd(counter, x, gr, st, params, relu,
+                                                arith=True))
+    if per_call != 1:
+        raise AssertionError(f"{blabel}: {per_call} kernels per call")
+    mism = 0
+    if relu:
+        affine = params if counter == "adain_bwd" else ()
+        mism = kernels.relu_mask_mismatches(x, out, st, *affine, arith=True)
+        if mism:
+            raise AssertionError(f"{blabel}: the mask differs from y > 0 at {mism}")
+    n_copies = max(1, math.ceil(COLD_L2_BYTES / (2 * x.numel() * x.element_size())))
+    copies = [(x, gr)] + [(x.clone(memory_format=torch.preserve_format),
+                           gr.clone(memory_format=torch.preserve_format))
+                          for _ in range(n_copies - 1)]
+    bwd = lambda arith: lambda i: run_bwd(counter, *copies[i % n_copies], st, params,
+                                          relu, arith=arith)
+    row.update(bwd=counter, bwd_max_abs_err=bwd_err, bwd_max_rel_err=bwd_rel,
+               bwd_mask_mismatches=mism, bwd_ms=device_ms(bwd(True)),
+               bwd_ms_fp32_arith=device_ms(bwd(False)))
+    return row
+
+
+def phase_arith_kernels():
+    """Phase 16's kernel checks and times: rows 1-3 at every serving site,
+    rows 1-3 and 5-6 at every training site, both stats modes."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    rows = []
+    for kernel, shape, relu, calls in SITES:
+        if kernel not in ARITH_ROWS:
+            continue
+        for stats in ("2pass", "1pass"):
+            row = check_arith_site(kernel, shape, relu, stats, g)
+            row.update(calls_per_batch=calls, site="serve")
+            rows.append(row)
+            log("arith_check " + json.dumps(row))
+    for counter, fwd, shape, relu, calls, fwd_calls in BWD_SITES:
+        if counter not in ARITH_BWD:
+            continue
+        for stats in ("2pass", "1pass"):
+            row = check_arith_site(fwd, shape, relu, stats, g, counter)
+            row.update(calls_per_step=calls, fwd_calls_per_step=fwd_calls, site="train")
+            rows.append(row)
+            log("arith_check " + json.dumps(row))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_norm_compute(vocab, card, serve_off, train_off) -> dict:
+    """Phase 16: `norm_compute: bf16` on the card."""
+    rows = phase_arith_kernels()
+    step_launches, step = phase_train_bf16(card, norm_compute="bf16")
+    serve_launches, serve = phase_serve_bf16(vocab, card, norm_compute="bf16")
+    result = dict(rows=rows, step_launches=step_launches, step=step,
+                  phase7_median_ms=train_off["median_ms"], serve_launches=serve_launches,
+                  serve=serve, phase4_images_per_s=serve_off["images_per_s"])
+    log(f"norm_compute_bf16: step median {step['median_ms']:.3f} ms (phase 7 "
+        f"{train_off['median_ms']:.3f}), served {serve['images_per_s']:.1f} images/s "
+        f"(phase 4 {serve_off['images_per_s']:.1f}); card {card}")
+    return result
+
+
+def arith_summary(rows, name, flagship_stats):
+    """Phase 16's figures for the `kernels` line: rows 1-3 per served batch
+    and per training step, rows 5-6 per step (bf16, the flagship's stats)."""
+    fwd = [r for r in rows if r["kernel"] == name and r["stats"] == flagship_stats]
+    if fwd:
+        serve = [r for r in fwd if r["site"] == "serve"]
+        train = [r for r in fwd if r["site"] == "train"]
+        tot = lambda rs, key, per: sum(r[key] * r[per] for r in rs)
+        return dict(ms=tot(serve, "ms", "calls_per_batch"),
+                    ms_fp32_arith=tot(serve, "ms_fp32_arith", "calls_per_batch"),
+                    ms_train=tot(train, "ms", "fwd_calls_per_step"),
+                    ms_train_fp32_arith=tot(train, "ms_fp32_arith", "fwd_calls_per_step"),
+                    max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+                    stat_flips=sum(r["stat_flips"] for r in rows if r["kernel"] == name))
+    counters = ("adain_bwd", "adain_residual_bwd") if name == "adain_bwd" else (name,)
+    bwd = [r for r in rows if r.get("bwd") in counters and r["stats"] == flagship_stats]
+    return dict(ms=sum(r["bwd_ms"] * r["calls_per_step"] for r in bwd),
+                ms_fp32_arith=sum(r["bwd_ms_fp32_arith"] * r["calls_per_step"] for r in bwd),
+                max_rel_err=max(r["bwd_max_rel_err"] for r in rows if r.get("bwd") in counters))
 
 
 def main() -> int:
@@ -2277,6 +2810,8 @@ def main() -> int:
     phase_train_cli(card, train_off)
     phase_eval(card)
     options = phase_block_options(vocab, card, train_off)
+    data_parallel = phase_data_parallel(card, train_off)
+    arith = phase_norm_compute(vocab, card, serve_off, train_off)
     log("stem_on_vs_off (phases 9-10 against 4 and 7 of this run): serving "
         + json.dumps({"on": serve_on, "off": serve_off}) + "; training "
         + json.dumps({"on": train_on, "off": train_off}))
@@ -2329,6 +2864,15 @@ def main() -> int:
         extra["launches_block_options"] = options["launches"][name]
         extra["launches_legacy"] = {k: v["launches"][name]
                                     for k, v in options["legacy"].items()}
+        # phases 15 and 16: per step of the NCCL data axis, and under
+        # norm_compute bf16 per step and per served batch with the bf16
+        # arithmetic's times
+        extra["launches_data_parallel"] = data_parallel["nccl"]["launches"][name]
+        if name in ARITH_ROWS:
+            extra["norm_compute_bf16"] = dict(
+                arith_summary(arith["rows"], name, cfg.norm_stats),
+                launches=arith["serve_launches"][name],
+                launches_train=arith["step_launches"][name])
         if name in CLUSTER_FWD:
             # rows 1-4: CUDA kernels per call, at the serving and training sites
             extra["kernels_per_call"] = max(r["kernels_per_call"] for r in mine)
@@ -2347,8 +2891,13 @@ def main() -> int:
             sum(train_launches[c] for c in counters),
             {"launches_by_counter": {c: train_launches[c] for c in counters},
              "launches_block_options": sum(options["launches"][c] for c in counters),
+             "launches_data_parallel": sum(data_parallel["nccl"]["launches"][c]
+                                           for c in counters),
              "kernels_per_call": max(r["kernels_per_call"] for r in mine),
-             "mask_mismatches": sum(r.get("mask_mismatches", 0) for r in mine)}))
+             "mask_mismatches": sum(r.get("mask_mismatches", 0) for r in mine),
+             **({} if name == "layer_norm_ref_bwd" else {"norm_compute_bf16": dict(
+                 arith_summary(arith["rows"], name, cfg.norm_stats),
+                 launches=sum(arith["step_launches"][c] for c in counters))})}))
     stem_entry = lambda name, per_key, per, launches, extra: entry(
         name, STEM_REPLACES[name], [r for r in stem_rows if r["kernel"] == name],
         per_key, per, launches, extra)
@@ -2373,4 +2922,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--dp-worker":   # phase 15 (b)
+        sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

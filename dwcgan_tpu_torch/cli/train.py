@@ -2,6 +2,8 @@
 
     python -m dwcgan_tpu_torch.cli.train --config configs/celeba_faces.yaml \
         --procedural_data --output_path OUT [--resume 1] [--device cuda]
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m dwcgan_tpu_torch.cli.train --config ... # data parallel, N cards
 
 Builds the generator and discriminator of `--config` in train mode with
 random weights from the config's seed (the word embeddings from
@@ -31,8 +33,16 @@ as if never interrupted.  With `use_pretrain`, `gen_pretrain` (a port
 checkpoint) warm-starts the parameters.  FiniteGuard stops the run on
 non-finite losses; StallWatchdog reports a stalled loop.
 
-Not ported yet: data-parallel training (`--mesh_model` and several
-processes wait for DDP), the legacy v1 models.  FID/IS evaluation is
+Data parallel (`parallel/mesh.py`): under `torch.distributed.run` every
+rank joins the process group (NCCL, one card a rank: `cuda:LOCAL_RANK`),
+`cfg.batch_size` is the global batch and each rank's `DataPipeline` feeds
+its share of every global batch; the step averages the gradients and the
+metrics, so FiniteGuard takes the same decision on every rank.  Only rank
+0 writes the config copy, the metric log, the sample grids,
+`index.html`, the snapshots (the others wait for each) and a profile;
+every rank steps.  `mesh_data` comes from the config (-1: every rank);
+`--mesh_model` overrides `mesh_model`, whose values above 1 (tensor
+parallelism) are not ported and raise.  FID/IS evaluation is
 `cli/evaluate.py`.
 """
 
@@ -53,6 +63,8 @@ from dwcgan_tpu_torch.device import resolve_device
 from dwcgan_tpu_torch.models.generator import build_embedding_matrix
 from dwcgan_tpu_torch.models.vgg import (Vgg16Features, init_random_vgg,
                                          load_vgg_npz, make_vgg_loss_fn)
+from dwcgan_tpu_torch.parallel.mesh import (DataAxis, destroy,
+                                            maybe_initialize_distributed)
 from dwcgan_tpu_torch.text.vocab import Vocab
 from dwcgan_tpu_torch.train.checkpoint import (CheckpointManager,
                                                checkpoint_header, warm_start)
@@ -92,15 +104,17 @@ def build_vgg_loss(cfg: Config, device, output_path: str = "."):
         print(f"vgg_w={cfg.vgg_w} but no weights at {vgg_path}; "
               "perceptual loss off (build with cli.convert_vgg)")
         return None
-    return make_vgg_loss_fn(vgg.to(device), stats=cfg.norm_stats)
+    return make_vgg_loss_fn(vgg.to(device), stats=cfg.norm_stats,
+                            arith=cfg.norm_compute)
 
 
 def build_trainer(cfg: Config, device="cuda", seed=None, embed_table=None,
-                  output_path: str = "."):
+                  output_path: str = ".", axis=None):
     """(state, step_fn, vocab): everything one training iteration needs.
     `embed_table` ([vocab, embed_dim]) is the frozen word embedding;
     `output_path` is where the VGG16 weights are looked for when the
-    config names none (`build_vgg_loss`)."""
+    config names none (`build_vgg_loss`); `axis`: the data axis of a
+    data-parallel run."""
     dev = resolve_device(device)
     torch.manual_seed(cfg.seed if seed is None else seed)  # anything not given state.rng
     vocab = Vocab(cfg.dataset)
@@ -108,7 +122,8 @@ def build_trainer(cfg: Config, device="cuda", seed=None, embed_table=None,
                                embed_table=embed_table)
     step_fn = make_train_step(cfg, state.gen, state.dis, state.gen_opt,
                               state.dis_opt,
-                              vgg_loss_fn=build_vgg_loss(cfg, dev, output_path))
+                              vgg_loss_fn=build_vgg_loss(cfg, dev, output_path),
+                              axis=axis)
     return state, step_fn, vocab
 
 
@@ -192,9 +207,11 @@ def display_batch(ds, n: int) -> Batch:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="DWC-GAN training on one card (PyTorch/CUDA port). FID/IS "
-        "evaluation of its checkpoints: python -m dwcgan_tpu_torch.cli.evaluate. "
-        "Not ported yet: data-parallel training (DDP), the legacy v1 models.")
+        description="DWC-GAN training (PyTorch/CUDA port): one card, or data "
+        "parallel over N cards under python -m torch.distributed.run "
+        "--nproc_per_node=N. FID/IS evaluation of its checkpoints: python -m "
+        "dwcgan_tpu_torch.cli.evaluate. Not ported yet: tensor parallelism "
+        "(--mesh_model above 1).")
     p.add_argument("--config", default="configs/celeba_faces.yaml")
     p.add_argument("--output_path", default=".")
     p.add_argument("--resume", type=int, default=0,
@@ -215,20 +232,35 @@ def parse_args(argv=None):
                    help="procedural dataset size (train split)")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of steps 10-20 here")
+    p.add_argument("--mesh_model", type=int, default=None,
+                   help="override the tensor-parallel axis size (above 1: "
+                        "not ported yet)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # no --mesh_model: tensor and data parallelism are not ported yet
     return p.parse_args(argv)
 
 
 def main(argv=None):
     """Train as the module docstring says; returns (state, last metrics)."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    dev = maybe_initialize_distributed(args.device)
+    try:
+        return _train(args, dev)
+    finally:
+        destroy()
+
+
+def _train(args, dev):
     cfg = load_config(args.config)
     if args.n_critic is not None:
         cfg.n_critic = max(1, args.n_critic)
     if args.max_steps is not None:
         cfg.max_iter = args.max_steps
+    if args.mesh_model is not None:
+        cfg.mesh_model = args.mesh_model
+    axis = DataAxis.from_config(cfg)
+    lead = axis.rank == 0   # the rank that writes and prints
+    if lead:
+        print(f"mesh: {dict(data=axis.world, model=1)} over {axis.world} devices")
 
     vocab = Vocab(cfg.dataset)
     embed_table = None
@@ -239,37 +271,46 @@ def main(argv=None):
                                                  seed=cfg.seed)
             print(f"loaded pretrained embeddings for vocab of {vocab.size}")
     state, step_fn, _ = build_trainer(cfg, dev, embed_table=embed_table,
-                                     output_path=args.output_path)
+                                     output_path=args.output_path, axis=axis)
     n_gen = sum(p.numel() for p in state.gen.parameters())
     n_dis = sum(p.numel() for p in state.dis.parameters())
-    print(f"device {dev}; The number of parameters in G: {n_gen}")
-    print(f"The number of parameters in D: {n_dis}")
+    if lead:
+        print(f"device {dev}; The number of parameters in G: {n_gen}")
+        print(f"The number of parameters in D: {n_dis}")
     sample_fn = make_sample_fn(cfg, state.ema_gen)
 
     model_name = os.path.splitext(os.path.basename(args.config))[0]
     out_dir = os.path.join(args.output_path, "outputs", model_name)
     img_dir = os.path.join(out_dir, "images")
     log_dir = os.path.join(args.output_path, "logs", model_name)
-    os.makedirs(img_dir, exist_ok=True)
-    shutil.copy(args.config, os.path.join(out_dir, "config.yaml"))
+    if lead:
+        os.makedirs(img_dir, exist_ok=True)
+        shutil.copy(args.config, os.path.join(out_dir, "config.yaml"))
     ckpt = CheckpointManager(os.path.join(out_dir, "checkpoints"),
                              max_to_keep=cfg.ckpt_keep,
-                             header=checkpoint_header(cfg, vocab.size, model_name))
+                             header=checkpoint_header(cfg, vocab.size, model_name),
+                             axis=axis)
     if cfg.use_pretrain and cfg.gen_pretrain:
         warm_start(state, cfg.gen_pretrain)
         print("Initial model loaded...")
     if args.resume and ckpt.latest_step() is not None:
         ckpt.restore(state)
-        print(f"Resume from iteration {state.step}")
+        if lead:
+            print(f"Resume from iteration {state.step}")
 
     dataset, test_dataset = make_datasets(cfg, args)
-    # one batch per step: a resumed run takes up the stream where it stopped
-    pipe = DataPipeline(dataset, cfg.batch_size, num_workers=cfg.num_workers,
-                        seed=cfg.seed, start=state.step)
-    disp = to_device(display_batch(test_dataset, cfg.display_size), dev)
-    disp_train = to_device(display_batch(dataset, cfg.display_size), dev)
+    # one global batch per step, this rank's share of it: a resumed run
+    # takes up the stream where it stopped
+    pipe = DataPipeline(dataset, axis.local_batch, num_workers=cfg.num_workers,
+                        seed=cfg.seed, process_index=axis.rank,
+                        process_count=axis.world, start=state.step)
+    if lead:
+        disp = to_device(display_batch(test_dataset, cfg.display_size), dev)
+        disp_train = to_device(display_batch(dataset, cfg.display_size), dev)
 
     def render(tag, step_i, train=False):
+        if not lead:
+            return
         att_on = cfg.gen.use_attention and step_i >= cfg.attention_warm_iter
         d = disp_train if train else disp
         g = torch.Generator(device=dev).manual_seed(step_i)
@@ -277,7 +318,7 @@ def main(argv=None):
         save_image_grid([r.cpu().numpy() for r in rows], cfg.display_size,
                         os.path.join(img_dir, f"{tag}.jpg"))
 
-    writer = MetricWriter(log_dir)
+    writer = MetricWriter(log_dir) if lead else None
     guard = FiniteGuard(every=cfg.guard_every or cfg.log_iter,
                         patience=cfg.guard_patience)
     watchdog = StallWatchdog(timeout_s=300.0)
@@ -285,6 +326,10 @@ def main(argv=None):
     timer = StepTimer()
     timer.lap()
     metrics, logged_at = {}, state.step
+    # the step of the newest snapshot, kept on the host: every rank of a
+    # data axis then takes the same decision at the end, whatever the
+    # directory holds by the time it looks
+    saved_at = ckpt.latest_step() or 0
     batches = iter(pipe)
     try:
         # the host runs at most about one step ahead of the card: the
@@ -292,16 +337,17 @@ def main(argv=None):
         for batch in batches:
             if state.step >= cfg.max_iter:
                 break
-            if args.profile_dir and state.step == PROFILE_STEPS[0]:
+            if lead and args.profile_dir and state.step == PROFILE_STEPS[0]:
                 profiler = start_profiler(dev)
             metrics = step_fn(state, to_device(batch, dev))
             step_i = state.step          # steps done
             if profiler is not None and step_i >= PROFILE_STEPS[1]:
                 stop_profiler(profiler, args.profile_dir)
                 profiler = None
-            # NaN tripwire: reads the metrics only on its own cadence
+            # NaN tripwire: reads the metrics only on its own cadence (the
+            # ranks' averaged metrics: every rank stops at the same step)
             guard.check(step_i, metrics, checkpoint=ckpt, state=state)
-            if step_i % cfg.log_iter == 0 or step_i == cfg.max_iter:
+            if lead and (step_i % cfg.log_iter == 0 or step_i == cfg.max_iter):
                 dt = timer.lap(metrics["loss_gen_total"])
                 sps = (step_i - logged_at) / dt if dt > 0 else 0.0
                 logged_at = step_i
@@ -316,27 +362,31 @@ def main(argv=None):
             if step_i % cfg.image_save_iter == 0:
                 render(f"test_{step_i:08d}", step_i - 1)
                 render(f"train_{step_i:08d}", step_i - 1, train=True)
-                write_html_gallery(os.path.join(out_dir, "index.html"),
-                                   step_i, cfg.image_save_iter)
+                if lead:
+                    write_html_gallery(os.path.join(out_dir, "index.html"),
+                                       step_i, cfg.image_save_iter)
             if step_i % cfg.snapshot_save_iter == 0:
                 ckpt.save(state)
+                saved_at = step_i
             watchdog.beat(step_i)
         # a clean end only (a tripped guard's state is not saved): the
         # last step's snapshot, grid and gallery, where its cadence did not
         # already make them
-        if (ckpt.latest_step() or 0) < state.step:
+        if saved_at < state.step:
             ckpt.save(state)
         if state.step % cfg.image_display_iter:
             render("train_current", state.step - 1)
-        write_html_gallery(os.path.join(out_dir, "index.html"), state.step,
-                           cfg.image_save_iter)
-        print("Finish training")
+        if lead:
+            write_html_gallery(os.path.join(out_dir, "index.html"), state.step,
+                               cfg.image_save_iter)
+            print("Finish training")
     finally:
         batches.close()          # stops the pipeline's workers
         watchdog.stop()
         if profiler is not None:
             stop_profiler(profiler, args.profile_dir)
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state, metrics
 
 

@@ -85,10 +85,32 @@
 // rows with consecutive threads on consecutive addresses.
 // Both stats modes share the backwards: the 1pass variance is the same
 // function of x as the 2pass one (away from its clamp at 0).
+//
+// norm_compute "bf16" (arith = 1, bf16 data only; the instance norm and
+// AdaIN, forward and backward; dwcgan_tpu/ops/norms.py:53-81, 101-150):
+// the statistics stay fp32, but the normalise chain runs in the activation
+// dtype, rounded after every op as XLA does it:
+//   y = bf16(bf16(x - bf16(mean)) * bf16(factor)), AdaIN then
+//   bf16(bf16(y * bf16(scale)) + bf16(bias)),
+// each an explicit __fsub_rn / __fmul_rn / __fadd_rn rounded by
+// __float2bfloat16_rn, so no multiply-add is contracted across a rounding
+// point.  Its backward is the VJP of that chain: with d = bf16(x - bf16(mean)),
+// g' the masked gradient, gy = g' (AdaIN: bf16(g' * bf16(scale))),
+//   gd = bf16(gy * bf16(f)), gm = -bf16(sum gd), gr = bf16(sum bf16(gy * d)),
+//   AdaIN: dbias = bf16(sum g'), dscale = bf16(sum bf16(g' * y1)), y1 =
+//   bf16(d * bf16(f)),
+//   dx = bf16(gd + bf16(gm / hw - gr f^3 (x - mean) / hw)),
+// every sum accumulated in fp32 and rounded once (the port's rule for a
+// bf16 reduction), the last term the statistics' own gradient in fp32.
+// The same plans and exchanges; AdaIN's backward exchanges four sums per
+// channel through the space of its two sums and its totals, the totals
+// kept in the lane partials' space.  fp32 data ignores arith.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -475,7 +497,7 @@ __host__ __device__ __forceinline__ FwdSmem fwd_smem(int c, int resident, int si
 
 // What one thread keeps: its V channels' partial sums, then their
 // statistics and affine, and the output rule.
-template <typename T, bool kAffine, bool kRelu, bool kResidual>
+template <typename T, bool kAffine, bool kRelu, bool kResidual, bool kArith = false>
 struct FwdLane {
   static constexpr int V = Vec<T>::kWidth;
   float a[V], b[V], mean[V], f[V], sc[V], bi[V];
@@ -499,17 +521,24 @@ struct FwdLane {
 
   // y of one row: normed, the affine, the ReLU, and x + AdaIN(y) with
   // AdaIN(y) already in T, as the reference adds two tensors of the compute
-  // dtype (T rounds twice); rr: the residual's row
+  // dtype (T rounds twice); rr: the residual's row.  kArith: the chain in
+  // T, each op rounded (mean, f, sc, bi hold their roundings to T)
   __device__ __forceinline__ uint4 out(uint4 xr, uint4 rr) const {
     float v[V], rv[V];
     unpack16<T>(xr, v);
     if (kResidual) unpack16<T>(rr, rv);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      float t = normed(v[i], mean[i], f[i]);
-      if (kAffine) t = affine(t, sc[i], bi[i]);
+      float t;
+      if (kArith) {
+        t = rounded<T>(__fmul_rn(rounded<T>(__fsub_rn(v[i], mean[i])), f[i]));
+        if (kAffine) t = rounded<T>(__fadd_rn(rounded<T>(__fmul_rn(t, sc[i])), bi[i]));
+      } else {
+        t = normed(v[i], mean[i], f[i]);
+        if (kAffine) t = affine(t, sc[i], bi[i]);
+      }
       if (kRelu) t = fmaxf(t, 0.f);
-      if (kResidual) t = rounded<T>(t) + rv[i];
+      if (kResidual) t = __fadd_rn(rounded<T>(t), rv[i]);
       v[i] = t;
     }
     return pack16<T>(v);
@@ -588,7 +617,8 @@ __device__ __forceinline__ void stamp(unsigned long long* trace, int i) {
 // forward kernels.  scale, bias: AdaIN's fp32 [n, c], or (kLayer) the
 // LayerNorm's gamma and beta, fp32 [c]; residual: the residual form's x,
 // else NULL.
-template <typename T, bool kAffine, bool kRelu, bool kResidual, bool kLayer>
+template <typename T, bool kAffine, bool kRelu, bool kResidual, bool kLayer,
+          bool kArith = false>
 __device__ __forceinline__ void norm_fwd(const T* __restrict__ x, const float* __restrict__ scale,
                                          const float* __restrict__ bias,
                                          const T* __restrict__ residual, T* __restrict__ y,
@@ -625,7 +655,7 @@ __device__ __forceinline__ void norm_fwd(const T* __restrict__ x, const float* _
   const int c0 = grp * V;
   const T* xg = x + base + c0;   // this thread's channels of the slab
   const T* xl = xs + c0;
-  FwdLane<T, kAffine, kRelu, kResidual> t;
+  FwdLane<T, kAffine, kRelu, kResidual, kArith> t;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     t.a[i] = 0.f;
@@ -745,6 +775,12 @@ __device__ __forceinline__ void norm_fwd(const T* __restrict__ x, const float* _
       t.f[i] = kLayer ? ln_fac : tot[c + c0 + i];
       t.sc[i] = kAffine ? scale[nc] : 1.f;
       t.bi[i] = kAffine ? bias[nc] : 0.f;
+      if (kArith) {   // the chain's operands in T (the statistics stay fp32)
+        t.mean[i] = rounded<T>(t.mean[i]);
+        t.f[i] = rounded<T>(t.f[i]);
+        t.sc[i] = rounded<T>(t.sc[i]);
+        t.bi[i] = rounded<T>(t.bi[i]);
+      }
     }
     const T* rg = residual + base + c0;
     T* yg = y + base + c0;
@@ -756,15 +792,16 @@ __device__ __forceinline__ void norm_fwd(const T* __restrict__ x, const float* _
   stamp(trace, 5);
 }
 
-// The instance norm and AdaIN forward: one cluster of k blocks per sample.
-template <typename T, bool kAffine, bool kRelu, bool kResidual>
+// The instance norm and AdaIN forward: one cluster of k blocks per sample
+// (kArith: norm_compute bf16).
+template <typename T, bool kAffine, bool kRelu, bool kResidual, bool kArith>
 __global__ void __launch_bounds__(kThreads)
 norm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                         const float* __restrict__ bias, const T* __restrict__ residual,
                         T* __restrict__ y, float* __restrict__ stats, int hw, int c,
                         int resident, int two_pass) {
-  norm_fwd<T, kAffine, kRelu, kResidual, false>(x, scale, bias, residual, y, stats, hw, c,
-                                                resident, two_pass);
+  norm_fwd<T, kAffine, kRelu, kResidual, false, kArith>(x, scale, bias, residual, y, stats,
+                                                        hw, c, resident, two_pass);
 }
 
 // The reference LayerNorm forward: the same cluster per sample, its
@@ -790,18 +827,36 @@ struct FwdArgs {
 
 enum FwdOp { kFwdIn = 0, kFwdAdain = 1, kFwdLn = 2 };
 
-template <typename T, bool kAffine, bool kRelu, bool kResidual>
+template <typename T, bool kAffine, bool kRelu, bool kResidual, bool kArith>
 int launch_fwd(const FwdArgs& p, cudaStream_t stream, int* clusters) {
-  return cluster_launch(norm_fwd_cluster_kernel<T, kAffine, kRelu, kResidual>, p.k, p.n,
+  return cluster_launch(norm_fwd_cluster_kernel<T, kAffine, kRelu, kResidual, kArith>, p.k, p.n,
                         p.smem, stream, clusters, static_cast<const T*>(p.x), p.scale,
                         p.bias, static_cast<const T*>(p.residual), static_cast<T*>(p.y),
                         p.stats, p.hw, p.c, p.resident, p.two_pass);
 }
 
+// the instance norm or AdaIN (kArith: norm_compute bf16): no affine or the
+// affine, optional ReLU, or the residual form (relu off)
+template <typename T, bool kArith>
+int dispatch_in_adain(const FwdArgs& p, int op, int relu, int residual, cudaStream_t s,
+                      int* clusters) {
+  if (op == kFwdAdain) {
+    if (residual) return relu ? (int)cudaErrorInvalidValue
+                              : launch_fwd<T, true, false, true, kArith>(p, s, clusters);
+    return relu ? launch_fwd<T, true, true, false, kArith>(p, s, clusters)
+                : launch_fwd<T, true, false, false, kArith>(p, s, clusters);
+  }
+  if (op != kFwdIn || residual) return (int)cudaErrorInvalidValue;
+  return relu ? launch_fwd<T, false, true, false, kArith>(p, s, clusters)
+              : launch_fwd<T, false, false, false, kArith>(p, s, clusters);
+}
+
 // the instance norm (no affine, optional ReLU), AdaIN (optional ReLU, or
-// the residual form, relu off) or the LayerNorm (neither)
+// the residual form, relu off) or the LayerNorm (neither); arith: the
+// instance norm's and AdaIN's norm_compute bf16, bf16 data only (fp32
+// data and the LayerNorm ignore it)
 template <typename T>
-int dispatch_fwd(const FwdArgs& p, int op, int relu, int residual, cudaStream_t s,
+int dispatch_fwd(const FwdArgs& p, int op, int relu, int residual, int arith, cudaStream_t s,
                  int* clusters) {
   constexpr int V = Vec<T>::kWidth;
   const int bad = check_cluster(p.n, p.hw, p.c, V, p.k, p.resident, p.smem,
@@ -813,22 +868,18 @@ int dispatch_fwd(const FwdArgs& p, int op, int relu, int residual, cudaStream_t 
                           static_cast<const T*>(p.x), p.scale, p.bias, static_cast<T*>(p.y),
                           p.stats, p.hw, p.c, p.resident, p.two_pass);
   }
-  if (op == kFwdAdain) {
-    if (residual) return relu ? (int)cudaErrorInvalidValue
-                              : launch_fwd<T, true, false, true>(p, s, clusters);
-    return relu ? launch_fwd<T, true, true, false>(p, s, clusters)
-                : launch_fwd<T, true, false, false>(p, s, clusters);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (arith) return dispatch_in_adain<T, true>(p, op, relu, residual, s, clusters);
   }
-  if (op != kFwdIn || residual) return (int)cudaErrorInvalidValue;
-  return relu ? launch_fwd<T, false, true, false>(p, s, clusters)
-              : launch_fwd<T, false, false, false>(p, s, clusters);
+  return dispatch_in_adain<T, false>(p, op, relu, residual, s, clusters);
 }
 
-int run_fwd(const FwdArgs& p, int op, int dtype, int relu, int residual, void* stream,
-            int* clusters) {
+int run_fwd(const FwdArgs& p, int op, int dtype, int relu, int residual, int arith,
+            void* stream, int* clusters) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dispatch_fwd<__nv_bfloat16>(p, op, relu, residual, s, clusters);
-  return dispatch_fwd<float>(p, op, relu, residual, s, clusters);
+  if (dtype == 1)
+    return dispatch_fwd<__nv_bfloat16>(p, op, relu, residual, arith, s, clusters);
+  return dispatch_fwd<float>(p, op, relu, residual, arith, s, clusters);
 }
 
 // ----------------------------------- backward: instance norm and AdaIN
@@ -866,11 +917,29 @@ enum BwdOp { kIn = 0, kAdain = 1, kLn = 2 };
 // dx is exactly 0.  The LayerNorm (no ReLU, g' = g): dx = kk g - ma -
 // (x - mean) mb with kk = gamma_c f and the per-sample ma = A f / m, mb =
 // B / ((m - 1) s d).
-template <typename T, int kOp, bool kRelu>
+//
+// kArith (norm_compute bf16, the instance norm and AdaIN): mean holds the
+// fp32 mean, kk its rounding to T, f, sc and bi the roundings of the factor,
+// scale and bias; a and b sum gd and bf16(gy * d), AdaIN's a2 and b2 g' and
+// bf16(g' * y1) (the header's rule); dx = gd + bf16(ma + mb (x - mean)) with
+// ma = gm / hw, mb = -gr f^3 / hw.
+template <typename T, int kOp, bool kRelu, bool kArith = false>
 struct BwdLane {
   static constexpr int V = Vec<T>::kWidth;
-  float mean[V], f[V], sc[V], bi[V], a[V], b[V], kk[V], ma[V], mb[V];
+  float mean[V], f[V], sc[V], bi[V], a[V], b[V], kk[V], ma[V], mb[V], a2[V], b2[V];
   unsigned bad = 0;   // elements whose mask differs from y > 0 (the check)
+
+  // kArith: the forward's chain at one element, d = bf16(x - bf16(mean))
+  // and y1 = bf16(d * bf16(f)); returns whether its ReLU passed
+  __device__ __forceinline__ bool chain(float xv, int i, float& d, float& y1) const {
+    d = rounded<T>(__fsub_rn(xv, kk[i]));
+    y1 = rounded<T>(__fmul_rn(d, f[i]));
+    if (!kRelu) return true;
+    const float t = kOp == kAdain
+                        ? rounded<T>(__fadd_rn(rounded<T>(__fmul_rn(y1, sc[i])), bi[i]))
+                        : y1;
+    return t > 0.f;
+  }
 
   // g' = g where the forward's ReLU passed, else 0: rounded<T>(t) > 0
   __device__ __forceinline__ bool on(float xh, int i) const {
@@ -887,6 +956,21 @@ struct BwdLane {
     if (kCheck) load16(yp, yv);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
+      if (kArith) {
+        float d, y1;
+        const bool pass = chain(xv[i], i, d, y1);
+        if (kCheck) bad += pass != (yv[i] > 0.f);
+        const float gi = pass ? gv[i] : 0.f;
+        float gy = gi;
+        if (kOp == kAdain) {
+          a2[i] += gi;
+          b2[i] += rounded<T>(__fmul_rn(gi, y1));
+          gy = rounded<T>(__fmul_rn(gi, sc[i]));
+        }
+        a[i] += rounded<T>(__fmul_rn(gy, f[i]));
+        b[i] += rounded<T>(__fmul_rn(gy, d));
+        continue;
+      }
       const float xh = normed(xv[i], mean[i], f[i]);
       const bool pass = on(xh, i);
       if (kCheck) bad += pass != (yv[i] > 0.f);
@@ -902,7 +986,14 @@ struct BwdLane {
     unpack16<T>(gq, gv);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      if (kOp == kLn) {
+      if (kArith) {
+        float d, y1;
+        const float gi = chain(xv[i], i, d, y1) ? gv[i] : 0.f;
+        const float gy = kOp == kAdain ? rounded<T>(__fmul_rn(gi, sc[i])) : gi;
+        const float gd = rounded<T>(__fmul_rn(gy, f[i]));
+        const float u = __fadd_rn(ma[i], __fmul_rn(mb[i], __fsub_rn(xv[i], mean[i])));
+        o[i] = __fadd_rn(gd, rounded<T>(u));
+      } else if (kOp == kLn) {
         o[i] = kk[i] * gv[i] - ma[i] - (xv[i] - mean[i]) * mb[i];
       } else {
         const float xh = normed(xv[i], mean[i], f[i]);
@@ -924,7 +1015,7 @@ struct BwdLane {
 // and for a CUDA graph's replay; no float atomics, the same bits every run.
 // kCheck: also read y and count the elements whose mask differs from y > 0
 // into *mismatch (a check, never on the training path).
-template <typename T, int kOp, bool kRelu, bool kCheck, int kMax>
+template <typename T, int kOp, bool kRelu, bool kCheck, int kMax, bool kArith = false>
 __device__ __forceinline__ void norm_bwd(const T* __restrict__ x, const T* __restrict__ gr,
                                          const float* __restrict__ stats,
                                          const float* __restrict__ scale,
@@ -945,7 +1036,10 @@ __device__ __forceinline__ void norm_bwd(const T* __restrict__ x, const T* __res
   T* gs = reinterpret_cast<T*>(smem + L.gs);
   float* red = reinterpret_cast<float*>(smem + L.red);
   float* part = reinterpret_cast<float*>(smem + L.part);
-  float* tot = reinterpret_cast<float*>(smem + L.tot);
+  // kArith AdaIN: its four sums are exchanged through part and tot (4 c
+  // floats), and the totals go to the lane partials' space, free by then
+  constexpr bool kFour = kArith && kOp == kAdain;
+  float* tot = reinterpret_cast<float*>(smem + (kFour ? L.red : L.tot));
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
   const size_t base = ((size_t)n * hw + r0) * c;   // the slab's first element
   const int chunks = min(kChunks, res);
@@ -966,7 +1060,7 @@ __device__ __forceinline__ void norm_bwd(const T* __restrict__ x, const T* __res
   const bool active = lane < lanes;
   const int c0 = grp * V;
   const float* st = stats + (size_t)n * 2 * c;
-  BwdLane<T, kOp, kRelu> t;
+  BwdLane<T, kOp, kRelu, kArith> t;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const size_t nc = (size_t)n * c + c0 + i;
@@ -977,6 +1071,14 @@ __device__ __forceinline__ void norm_bwd(const T* __restrict__ x, const T* __res
     t.bi[i] = kAffineIn && kRelu ? bias[nc] : 0.f;
     t.a[i] = 0.f;
     t.b[i] = 0.f;
+    t.a2[i] = 0.f;
+    t.b2[i] = 0.f;
+    if (kArith) {   // the chain's operands in T
+      t.kk[i] = rounded<T>(t.mean[i]);
+      t.f[i] = rounded<T>(t.f[i]);
+      t.sc[i] = rounded<T>(t.sc[i]);
+      t.bi[i] = rounded<T>(t.bi[i]);
+    }
   }
 
   // 2. sums over the slab, in one fixed order per thread: the streamed rows
@@ -1016,11 +1118,26 @@ __device__ __forceinline__ void norm_bwd(const T* __restrict__ x, const T* __res
 
   // 3. this block's sums: each lane's, then over the lanes in order
   block_sums<V>(red, part, t.a, t.b, active, lane, lanes, c0, c);
+  if (kFour) {
+    __syncthreads();   // every thread is done reading red
+    block_sums<V>(red, part + 2 * c, t.a2, t.b2, active, lane, lanes, c0, c);
+  }
 
   // 4. the cluster's totals, the same in every block and from run to run
   cluster_arrive();   // release: this block's part is written
   cluster_wait();     // acquire: so is every other block's
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
+    if (kFour) {
+      float s[4];
+      cluster_sums<4, kMax>(part + ch, c, k, s);
+      tot[ch] = s[0];
+      tot[c + ch] = s[1];
+      if (rank == 0) {   // the sums of g' and bf16(g' y1), rounded once
+        dbias[(size_t)n * c + ch] = rounded<T>(s[2]);
+        dscale[(size_t)n * c + ch] = rounded<T>(s[3]);
+      }
+      continue;
+    }
     float s[2];
     cluster_sums<2, kMax>(part + ch, c, k, s);
     tot[ch] = s[0];
@@ -1052,7 +1169,13 @@ __device__ __forceinline__ void norm_bwd(const T* __restrict__ x, const T* __res
     const float d = 1.f / t.f[0], sd = d - kEps;
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      if (kOp == kLn) {
+      if (kArith) {
+        // gm = -bf16(sum gd), gr = bf16(sum bf16(gy d)), f the fp32 factor
+        const float ff = st[c + c0 + i];
+        const float gr = rounded<T>(tot[c + c0 + i]);
+        t.ma[i] = __fdiv_rn(-rounded<T>(tot[c0 + i]), hwf);
+        t.mb[i] = __fdiv_rn(-__fmul_rn(gr, __fmul_rn(__fmul_rn(ff, ff), ff)), hwf);
+      } else if (kOp == kLn) {
         t.kk[i] = scale[c0 + i] * t.f[i];
         t.ma[i] = ab[0] / m * t.f[i];
         t.mb[i] = ab[1] / (fmaxf(m - 1.f, 1.f) * sd * d);
@@ -1110,8 +1233,9 @@ __device__ __forceinline__ void norm_bwd(const T* __restrict__ x, const T* __res
   cluster_wait();   // no block leaves while another may still read its part
 }
 
-// The instance-norm and AdaIN backward: one cluster of k blocks per sample.
-template <typename T, bool kAdainOp, bool kRelu, bool kCheck>
+// The instance-norm and AdaIN backward: one cluster of k blocks per sample
+// (kArith: norm_compute bf16).
+template <typename T, bool kAdainOp, bool kRelu, bool kCheck, bool kArith>
 __global__ void __launch_bounds__(kThreads)
 norm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gr,
                         const float* __restrict__ stats, const float* __restrict__ scale,
@@ -1119,7 +1243,7 @@ norm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gr,
                         float* __restrict__ dscale, float* __restrict__ dbias,
                         const T* __restrict__ y, unsigned* __restrict__ mismatch, int hw,
                         int c, int resident) {
-  norm_bwd<T, kAdainOp ? kAdain : kIn, kRelu, kCheck, kMaxCluster>(
+  norm_bwd<T, kAdainOp ? kAdain : kIn, kRelu, kCheck, kMaxCluster, kArith>(
       x, gr, stats, scale, bias, dx, dscale, dbias, y, mismatch, nullptr, nullptr, hw, c,
       resident);
 }
@@ -1154,18 +1278,35 @@ struct BwdArgs {
   int n, hw, c, k, resident, smem;
 };
 
-template <typename T, bool kAdainOp, bool kRelu, bool kCheck>
+template <typename T, bool kAdainOp, bool kRelu, bool kCheck, bool kArith>
 int launch_bwd(const BwdArgs& p, cudaStream_t stream, int* clusters) {
-  return cluster_launch(norm_bwd_cluster_kernel<T, kAdainOp, kRelu, kCheck>, p.k, p.n, p.smem,
+  return cluster_launch(norm_bwd_cluster_kernel<T, kAdainOp, kRelu, kCheck, kArith>, p.k,
+                        p.n, p.smem,
                         stream, clusters, static_cast<const T*>(p.x),
                         static_cast<const T*>(p.g), p.stats, p.scale, p.bias,
                         static_cast<T*>(p.dx), p.dscale, p.dbias,
                         static_cast<const T*>(p.y), p.mismatch, p.hw, p.c, p.resident);
 }
 
+// the instance norm or AdaIN (kArith: norm_compute bf16), optional ReLU;
+// check: the variant that reads y and counts mismatches
+template <typename T, bool kArith>
+int dispatch_in_adain_bwd(const BwdArgs& p, int op, int relu, int check, cudaStream_t stream,
+                          int* clusters) {
+  if (op == kAdain) {
+    if (check) return launch_bwd<T, true, true, true, kArith>(p, stream, clusters);
+    return relu ? launch_bwd<T, true, true, false, kArith>(p, stream, clusters)
+                : launch_bwd<T, true, false, false, kArith>(p, stream, clusters);
+  }
+  if (op != kIn) return (int)cudaErrorInvalidValue;
+  if (check) return launch_bwd<T, false, true, true, kArith>(p, stream, clusters);
+  return relu ? launch_bwd<T, false, true, false, kArith>(p, stream, clusters)
+              : launch_bwd<T, false, false, false, kArith>(p, stream, clusters);
+}
+
 template <typename T>
-int dispatch_bwd(const BwdArgs& p, int op, int relu, int check, cudaStream_t stream,
-                 int* clusters) {
+int dispatch_bwd(const BwdArgs& p, int op, int relu, int check, int arith,
+                 cudaStream_t stream, int* clusters) {
   constexpr int V = Vec<T>::kWidth;
   const int bad = check_cluster(p.n, p.hw, p.c, V, p.k, p.resident, p.smem,
                                 bwd_smem(p.c, p.resident, sizeof(T), V).total,
@@ -1178,24 +1319,21 @@ int dispatch_bwd(const BwdArgs& p, int op, int relu, int check, cudaStream_t str
                           p.scale, static_cast<T*>(p.dx), p.dscale, p.dbias, p.ws, p.counter,
                           p.hw, p.c, p.resident);
   }
-  if (op == kAdain) {
-    if (check) return launch_bwd<T, true, true, true>(p, stream, clusters);
-    return relu ? launch_bwd<T, true, true, false>(p, stream, clusters)
-                : launch_bwd<T, true, false, false>(p, stream, clusters);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (arith) return dispatch_in_adain_bwd<T, true>(p, op, relu, check, stream, clusters);
   }
-  if (op != kIn) return (int)cudaErrorInvalidValue;
-  if (check) return launch_bwd<T, false, true, true>(p, stream, clusters);
-  return relu ? launch_bwd<T, false, true, false>(p, stream, clusters)
-              : launch_bwd<T, false, false, false>(p, stream, clusters);
+  return dispatch_in_adain_bwd<T, false>(p, op, relu, check, stream, clusters);
 }
 
 // op: 0 instance norm, 1 AdaIN, 2 the LayerNorm; check: the variant that
-// reads y and counts mismatches (p.y, p.mismatch)
-int run_bwd(const BwdArgs& p, int op, int dtype, int relu, int check, void* stream,
-            int* clusters) {
+// reads y and counts mismatches (p.y, p.mismatch); arith: norm_compute bf16
+// (the instance norm and AdaIN on bf16 data; ignored otherwise)
+int run_bwd(const BwdArgs& p, int op, int dtype, int relu, int check, int arith,
+            void* stream, int* clusters) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(p, op, relu, check, s, clusters);
-  return dispatch_bwd<float>(p, op, relu, check, s, clusters);
+  if (dtype == 1)
+    return dispatch_bwd<__nv_bfloat16>(p, op, relu, check, arith, s, clusters);
+  return dispatch_bwd<float>(p, op, relu, check, arith, s, clusters);
 }
 
 }  // namespace
@@ -1209,24 +1347,26 @@ int run_bwd(const BwdArgs& p, int op, int dtype, int relu, int check, void* stre
 // rows of its slab in `smem` bytes of shared memory (ops/cuda/kernels.py's
 // fwd_plan, bwd_plan and ln_bwd_plan).
 
+// arith (here and in the backwards): 1 for norm_compute bf16 (bf16 data
+// only; see the header), 0 for fp32 arithmetic
 extern "C" int dwc_instance_norm(const void* x, void* y, void* stats, int n, int hw, int c,
-                                 int dtype, int two_pass, int relu, int k, int resident,
-                                 int smem, void* stream) {
+                                 int dtype, int two_pass, int relu, int arith, int k,
+                                 int resident, int smem, void* stream) {
   const FwdArgs p{x, nullptr, nullptr, nullptr, y, static_cast<float*>(stats),
                   n, hw, c, k, resident, smem, two_pass};
-  return run_fwd(p, kFwdIn, dtype, relu, 0, stream, nullptr);
+  return run_fwd(p, kFwdIn, dtype, relu, 0, arith, stream, nullptr);
 }
 
 // scale, bias: float32 [n][c].  residual: NULL for AdaIN, else the tensor
 // added after it (adain_residual; relu off)
 extern "C" int dwc_adain(const void* x, const void* scale, const void* bias,
                          const void* residual, void* y, void* stats, int n, int hw, int c,
-                         int dtype, int two_pass, int relu, int k, int resident, int smem,
-                         void* stream) {
+                         int dtype, int two_pass, int relu, int arith, int k, int resident,
+                         int smem, void* stream) {
   const FwdArgs p{x, static_cast<const float*>(scale), static_cast<const float*>(bias),
                   residual, y, static_cast<float*>(stats), n, hw, c, k, resident, smem,
                   two_pass};
-  return run_fwd(p, kFwdAdain, dtype, relu, residual != nullptr, stream, nullptr);
+  return run_fwd(p, kFwdAdain, dtype, relu, residual != nullptr, arith, stream, nullptr);
 }
 
 // gamma, beta: float32 [c].  stats: the per-sample mean and factor 1 / (std
@@ -1237,18 +1377,18 @@ extern "C" int dwc_layer_norm_ref(const void* x, const void* gamma, const void* 
   const FwdArgs p{x, static_cast<const float*>(gamma), static_cast<const float*>(beta),
                   nullptr, y, static_cast<float*>(stats), n, hw, c, k, resident, smem,
                   two_pass};
-  return run_fwd(p, kFwdLn, dtype, 0, 0, stream, nullptr);
+  return run_fwd(p, kFwdLn, dtype, 0, 0, 0, stream, nullptr);
 }
 
 // Set up one configuration of the cluster forward (op: 0 instance norm, 1
-// AdaIN, 2 the LayerNorm; residual: AdaIN's residual form) and write to
-// *clusters how many of its clusters fit on the current card at once (0:
-// none does).
-extern "C" int dwc_norm_fwd_clusters(int op, int dtype, int relu, int residual, int c, int k,
-                                     int resident, int smem, int* clusters) {
+// AdaIN, 2 the LayerNorm; residual: AdaIN's residual form; arith: as the
+// forwards') and write to *clusters how many of its clusters fit on the
+// current card at once (0: none does).
+extern "C" int dwc_norm_fwd_clusters(int op, int dtype, int relu, int residual, int arith,
+                                     int c, int k, int resident, int smem, int* clusters) {
   const FwdArgs p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                   1, k, c, k, resident, smem, 0};
-  return run_fwd(p, op, dtype, relu, residual, nullptr, clusters);
+  return run_fwd(p, op, dtype, relu, residual, arith, nullptr, clusters);
 }
 
 // Set (buf: a device buffer of n * k * 6 uint64) or clear (NULL) the
@@ -1264,27 +1404,27 @@ extern "C" int dwc_norm_fwd_trace(void* buf) {
 
 extern "C" int dwc_instance_norm_bwd(const void* x, const void* g, const void* stats,
                                      void* dx, const void* y, void* mismatch, int n, int hw,
-                                     int c, int dtype, int relu, int k, int resident,
-                                     int smem, void* stream) {
+                                     int c, int dtype, int relu, int arith, int k,
+                                     int resident, int smem, void* stream) {
   const BwdArgs p{x, g, static_cast<const float*>(stats), nullptr, nullptr, dx, nullptr,
                   nullptr, y, static_cast<unsigned*>(mismatch), nullptr, nullptr,
                   n, hw, c, k, resident, smem};
-  return run_bwd(p, kIn, dtype, relu, y != nullptr, stream, nullptr);
+  return run_bwd(p, kIn, dtype, relu, y != nullptr, arith, stream, nullptr);
 }
 
-// dscale, dbias: float32 [n][c] outputs.  The residual form x + AdaIN(y)
-// calls this for its y with relu off (its x gradient is g); bias is read
-// only for the ReLU's mask.
+// dscale, dbias: float32 [n][c] outputs (arith 1: each a bf16 value).  The
+// residual form x + AdaIN(y) calls this for its y with relu off (its x
+// gradient is g); bias is read only for the ReLU's mask.
 extern "C" int dwc_adain_bwd(const void* x, const void* g, const void* stats,
                              const void* scale, const void* bias, void* dx, void* dscale,
                              void* dbias, const void* y, void* mismatch, int n, int hw, int c,
-                             int dtype, int relu, int k, int resident, int smem,
+                             int dtype, int relu, int arith, int k, int resident, int smem,
                              void* stream) {
   const BwdArgs p{x, g, static_cast<const float*>(stats), static_cast<const float*>(scale),
                   static_cast<const float*>(bias), dx, static_cast<float*>(dscale),
                   static_cast<float*>(dbias), y, static_cast<unsigned*>(mismatch), nullptr,
                   nullptr, n, hw, c, k, resident, smem};
-  return run_bwd(p, kAdain, dtype, relu, y != nullptr, stream, nullptr);
+  return run_bwd(p, kAdain, dtype, relu, y != nullptr, arith, stream, nullptr);
 }
 
 // dgamma, dbeta: float32 [c] outputs, summed over the batch.  ws: float32
@@ -1298,16 +1438,16 @@ extern "C" int dwc_layer_norm_ref_bwd(const void* x, const void* g, const void* 
                   nullptr, dx, static_cast<float*>(dgamma), static_cast<float*>(dbeta),
                   nullptr, nullptr, static_cast<float*>(ws), static_cast<unsigned*>(counter),
                   n, hw, c, k, resident, smem};
-  return run_bwd(p, kLn, dtype, 0, 0, stream, nullptr);
+  return run_bwd(p, kLn, dtype, 0, 0, 0, stream, nullptr);
 }
 
 // Set up one configuration of the cluster backward (op: 0 instance norm, 1
-// AdaIN, 2 the LayerNorm; check: the mask-check variant) and write to
-// *clusters how many of its clusters fit on the current card at once (0:
-// none does).
-extern "C" int dwc_norm_bwd_clusters(int op, int dtype, int relu, int check, int c, int k,
-                                     int resident, int smem, int* clusters) {
+// AdaIN, 2 the LayerNorm; check: the mask-check variant; arith: as the
+// backwards') and write to *clusters how many of its clusters fit on the
+// current card at once (0: none does).
+extern "C" int dwc_norm_bwd_clusters(int op, int dtype, int relu, int check, int arith, int c,
+                                     int k, int resident, int smem, int* clusters) {
   const BwdArgs p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                   nullptr, nullptr, nullptr, nullptr, 1, k, c, k, resident, smem};
-  return run_bwd(p, op, dtype, relu, check, nullptr, clusters);
+  return run_bwd(p, op, dtype, relu, check, arith, nullptr, clusters);
 }

@@ -5,8 +5,8 @@ device.
 
 `synthetic_batch` and `DataPipeline` give the same numpy arrays as the JAX
 package's for the same arguments.  The pipeline runs on one process
-(`process_index` 0 of 1 unless the caller says otherwise); data-parallel
-training is not ported yet.
+(`process_index` 0 of 1) unless the caller says otherwise: under data
+parallel (`cli/train.py`) each rank feeds its share of every global batch.
 """
 
 from __future__ import annotations

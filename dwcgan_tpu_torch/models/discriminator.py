@@ -25,7 +25,8 @@ from torch import nn
 from dwcgan_tpu_torch.config import Config, DisConfig
 from dwcgan_tpu_torch.device import resolve_device
 from dwcgan_tpu_torch.ops.blocks import (CONV_NORMS, Conv2dBlock, channels_last,
-                                         conv2d, fixed_init_params, weights_init)
+                                         conv2d, fixed_init_params, set_norm_modes,
+                                         weights_init)
 from dwcgan_tpu_torch.ops.resize import downsample2x
 
 
@@ -54,9 +55,11 @@ class MsImageDis(nn.Module):
         self.cnns_cls = nn.ModuleList(clss)
 
     def set_norm_stats(self, stats: str) -> None:
-        for m in self.modules():
-            if isinstance(m, Conv2dBlock):
-                m.stats = stats
+        set_norm_modes(self, stats=stats)
+
+    def set_norm_compute(self, arith: str) -> None:
+        """The `in` blocks' normalise arithmetic ("fp32" or "bf16")."""
+        set_norm_modes(self, arith=arith)
 
     def forward(self, images, multiscale: bool = True):
         """images: [N, H, W, 3] -> per scale (src [N, h, w, 1], cls [N, K])."""
@@ -100,10 +103,12 @@ def build_discriminator(cfg: Config, device="cuda", seed: int = 0
                         ) -> MsImageDis:
     """The discriminator of `cfg` with gaussian(0.02) weights from `seed`,
     on `device` (the card unless the caller asks for the CPU), compute
-    dtype `cfg.compute_dtype`, variance form `cfg.norm_stats`."""
+    dtype `cfg.compute_dtype`, variance form `cfg.norm_stats`, normalise
+    arithmetic `cfg.norm_compute`."""
     dev = resolve_device(device)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     dis = MsImageDis(cfg.dis, dtype)
     dis.set_norm_stats(cfg.norm_stats)
+    dis.set_norm_compute(cfg.norm_compute)
     init_dis_weights(dis, seed)
     return dis.to(dev)

@@ -36,9 +36,9 @@ from dwcgan_tpu_torch.device import resolve_device
 from dwcgan_tpu_torch.ops.blocks import (AdaINResBlocks, Conv2dBlock, MLP,
                                          ResBlocks, channels_last, conv2d,
                                          dropout, fixed_init_params, linear,
-                                         pad2d, sigmoid, weights_init)
+                                         pad2d, set_norm_modes, sigmoid,
+                                         weights_init)
 from dwcgan_tpu_torch.ops.lstm import MaskedBiLSTM
-from dwcgan_tpu_torch.ops.norms import check_stats
 from dwcgan_tpu_torch.ops.resize import upsample2x
 
 
@@ -124,14 +124,14 @@ class StyleEncoder(nn.Module):
         self.shape = (num_cls, c_dim)
         self.p_map = self.rate
 
-    def forward(self, x, rng=None):
+    def forward(self, x, rng=None, rows=None):
         for m in self.model:
             x = m(x)
         feats = x.mean(dim=(2, 3))   # global average pool -> [N, d]
         if self.use_map:
             m0, m3 = self.mapping[0], self.mapping[3]
             feats = F.relu(linear(feats, m0.weight, m0.bias))
-            feats = dropout(feats, self.p_map, self.training, rng)
+            feats = dropout(feats, self.p_map, self.training, rng, rows)
             feats = F.relu(linear(feats, m3.weight, m3.bias))
         shape = (x.shape[0],) + self.shape
         return (_fused_linear(feats, self.fcs).reshape(shape),
@@ -169,13 +169,13 @@ class TxtEncoder(nn.Module):
         self.rates = (dropout_in, dropout_out)
         self.shape = (num_cls, c_dim)
 
-    def forward(self, style_flat, tokens, lengths, rng=None):
+    def forward(self, style_flat, tokens, lengths, rng=None, rows=None):
         """style_flat: [N, num_cls*c_dim]; tokens: [N, T] int; lengths: [N]
         (best on the host).  Computes in `self.dtype`."""
         x = dropout(self.embed_tokens(tokens.long()).to(self.dtype),
-                    self.dropout_in, self.training, rng)
+                    self.dropout_in, self.training, rng, rows)
         style_b = style_flat.to(self.dtype)[:, None, :].expand(-1, x.shape[1], -1)
-        _, h, c = self.lstm(torch.cat([x, style_b], dim=-1), lengths, rng)
+        _, h, c = self.lstm(torch.cat([x, style_b], dim=-1), lengths, rng, rows)
         feats = torch.cat([torch.cat([h[l, 0], h[l, 1], c[l, 0], c[l, 1]], -1)
                            for l in range(h.shape[0])], dim=-1)
         shape = (feats.shape[0],) + self.shape
@@ -275,23 +275,25 @@ class Generator(nn.Module):
 
     def set_norm_stats(self, stats: str) -> None:
         """How every norm forms its variance ("2pass" or "1pass")."""
-        check_stats(stats)
-        for m in self.modules():
-            if isinstance(m, Conv2dBlock):
-                m.stats = stats
+        set_norm_modes(self, stats=stats)
+
+    def set_norm_compute(self, arith: str) -> None:
+        """In which dtype every instance norm and AdaIN normalises ("fp32"
+        or "bf16", `cfg.norm_compute`; `ops/norms.py`)."""
+        set_norm_modes(self, arith=arith)
 
     def _nchw(self, x):
         """NHWC in -> NCHW in channels_last memory, compute dtype."""
         return channels_last(x.permute(0, 3, 1, 2).to(self.dtype))
 
-    def encode(self, images, rng=None):
+    def encode(self, images, rng=None, rows=None):
         x = self._nchw(images)
-        mu, logvar = self.enc_style(x, rng)
+        mu, logvar = self.enc_style(x, rng, rows)
         content = self.enc_content(x)
         return content.permute(0, 2, 3, 1), mu, logvar
 
-    def encode_txt(self, style_flat, tokens, lengths, rng=None):
-        return self.enc_txt(style_flat, tokens, lengths, rng)
+    def encode_txt(self, style_flat, tokens, lengths, rng=None, rows=None):
+        return self.enc_txt(style_flat, tokens, lengths, rng, rows)
 
     def decode(self, content, style_flat):
         adain_params = self.mlp(style_flat.to(self.dtype))
@@ -346,7 +348,8 @@ def build_generator(cfg: Config, vocab_size: int, device="cuda",
     or, with `train`, in train mode (dropout on).
 
     Compute dtype from `cfg.compute_dtype`, variance form from
-    `cfg.norm_stats`.  `cfg.stem_pallas` runs both encoders' 7x7 stems as
+    `cfg.norm_stats`, normalise arithmetic `cfg.norm_compute` (the fused
+    stem ignores it, as JAX's does).  `cfg.stem_pallas` runs both encoders' 7x7 stems as
     the fused stem (`ops/stem.py`; its own kernels on the card).
     `embed_table` ([vocab, embed_dim]) replaces the random word embeddings
     (the trainer then keeps it frozen).  The LSTM's `bias_hh` is frozen at
@@ -354,12 +357,10 @@ def build_generator(cfg: Config, vocab_size: int, device="cuda",
     nothing here: on the card the norm kernels always run, and
     `parity_convs` is an XLA rewrite of the same convolution."""
     dev = resolve_device(device)
-    if cfg.norm_compute != "fp32":
-        raise NotImplementedError(
-            f"norm_compute {cfg.norm_compute!r}: only 'fp32' is ported so far")
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     gen = Generator(cfg.gen, cfg.input_dim, vocab_size, dtype=dtype,
                     stats=cfg.norm_stats, stem=bool(cfg.stem_pallas))
+    gen.set_norm_compute(cfg.norm_compute)
     init_weights(gen, cfg.init, seed)
     if embed_table is not None:
         with torch.no_grad():

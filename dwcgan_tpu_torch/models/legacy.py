@@ -44,6 +44,7 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 class _Legacy(nn.Module):
 
     set_norm_stats = Generator.set_norm_stats
+    set_norm_compute = Generator.set_norm_compute
 
 
 class StyleEncoderV1(_Legacy):
@@ -231,18 +232,20 @@ LEGACY_GENERATORS = {"AdaINGenV1": AdaINGenV1, "VAEGen": VAEGen}
 def build_legacy_generator(kind: str, device="cuda", seed: int = 0,
                            dtype: torch.dtype = torch.float32,
                            stats: str = "2pass", init_type: str = "kaiming",
-                           **kwargs) -> _Legacy:
+                           arith: str = "fp32", **kwargs) -> _Legacy:
     """A legacy generator (`kind` "AdaINGenV1" or "VAEGen", sizes as
     keyword arguments) in eval mode with random weights from `seed`
-    (`models/generator.py::init_weights`), computing in `dtype`, on
-    `device`: the card unless the caller asks for the CPU.  The LSTM's
-    `bias_hh` is frozen at zero, as the v2 generator's is."""
+    (`models/generator.py::init_weights`), computing in `dtype` with the
+    norms' variance form `stats` and normalise arithmetic `arith`
+    (`norm_compute`), on `device`: the card unless the caller asks for the
+    CPU.  The LSTM's `bias_hh` is frozen at zero, as the v2 generator's is."""
     dev = resolve_device(device)
     if kind not in LEGACY_GENERATORS:
         raise ValueError(f"unknown legacy generator {kind!r} "
                          f"({sorted(LEGACY_GENERATORS)})")
     model = LEGACY_GENERATORS[kind](dtype=dtype, **kwargs)
     model.set_norm_stats(stats)
+    model.set_norm_compute(arith)
     init_weights(model, init_type, seed)
     for m in model.modules():
         if isinstance(m, MaskedBiLSTM):

@@ -100,13 +100,16 @@ def load_vgg_npz(vgg: Vgg16Features, path: str) -> None:
     vgg.load_state_dict(sd, strict=True)
 
 
-def make_vgg_loss_fn(vgg: Vgg16Features, stats: str = "2pass"):
+def make_vgg_loss_fn(vgg: Vgg16Features, stats: str = "2pass",
+                     arith: str = "fp32"):
     """(x, y) NHWC images -> mean squared difference of the instance-normed
-    relu5_3 features (solver.py:242-247)."""
+    relu5_3 features (solver.py:242-247); the instance norm's variance form
+    `stats` and normalise arithmetic `arith` (`norm_compute`, which the JAX
+    loss's `instance_norm` follows too)."""
 
     def loss_fn(x, y):
-        fx = instance_norm(vgg(vgg_preprocess(x)), stats=stats)
-        fy = instance_norm(vgg(vgg_preprocess(y)), stats=stats)
+        fx = instance_norm(vgg(vgg_preprocess(x)), stats=stats, arith=arith)
+        fy = instance_norm(vgg(vgg_preprocess(y)), stats=stats, arith=arith)
         return (fx.float() - fy.float()).square().mean()
 
     return loss_fn

@@ -26,9 +26,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from dwcgan_tpu_torch.ops.norms import (EPS, adain, adain_residual,
-                                        batch_norm_stats_free, instance_norm,
+                                        batch_norm_stats_free, check_arith,
+                                        check_stats, instance_norm,
                                         layer_norm_ref)
 from dwcgan_tpu_torch.ops.prng import jax_normal_key0
+from dwcgan_tpu_torch.parallel.mesh import draw
 from dwcgan_tpu_torch.ops.stem import (stem_applicable, stem_conv7,
                                        stem_fits_vmem)
 
@@ -163,12 +165,21 @@ def fixed_init_params(module: nn.Module) -> dict:
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            rng: Optional[torch.Generator] = None) -> torch.Tensor:
+            rng: Optional[torch.Generator] = None, rows=None,
+            length: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout whose keep mask is drawn from `rng` (a generator on
-    x's device; torch's default generator when None)."""
+    x's device; torch's default generator when None).  `rows`
+    (`parallel.mesh.Rows`): the mask is this rank's rows of the draw at the
+    global batch.  `length`: x [N, T, D] is the first T steps of a sequence
+    of `length`, and the mask is drawn at that length and cut, so that it
+    does not depend on how long the batch's longest sequence is."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=rng, device=x.device) >= p
+    shape = tuple(x.shape) if length is None else (x.shape[0], length) + tuple(x.shape[2:])
+    u = draw(torch.rand, shape, rng, x.device, rows)
+    if length is not None:
+        u = u[:, :x.shape[1]]
+    keep = u >= p
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
@@ -276,6 +287,22 @@ class BatchNormAffine(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
 
+def set_norm_modes(module: nn.Module, stats: Optional[str] = None,
+                   arith: Optional[str] = None) -> None:
+    """How every `Conv2dBlock` under `module` forms its variance (`stats`,
+    "2pass" or "1pass") and in which dtype its in / adain norm normalises
+    (`arith`, "fp32" or "bf16": `cfg.norm_compute`); None leaves one as it
+    is."""
+    if stats is not None:
+        check_stats(stats)
+    if arith is not None:
+        check_arith(arith)
+    for m in module.modules():
+        if isinstance(m, Conv2dBlock):
+            m.stats = m.stats if stats is None else stats
+            m.arith = m.arith if arith is None else arith
+
+
 def _check_norm(norm: str, known) -> None:
     if norm not in known:
         raise ValueError(f"Unsupported normalization: {norm}")
@@ -311,8 +338,11 @@ class Conv2dBlock(nn.Module):
         self.norm_type, self.activ = norm, activ
         self.stem = stem and stem_applicable(kernel_size, stride, padding,
                                              in_dim, norm, activ)
-        # how the norm forms its variance; `Generator.set_norm_stats` sets it
+        # how the norm forms its variance and in which dtype it normalises
+        # (in and adain); `Generator.set_norm_stats` and `set_norm_compute`
+        # set them
         self.stats = "2pass"
+        self.arith = "fp32"
         self.conv = nn.Conv2d(in_dim, out_dim, kernel_size, stride, bias=True)
         if norm == "ln":
             self.norm = LayerNormRef(out_dim)
@@ -339,12 +369,13 @@ class Conv2dBlock(nn.Module):
         y = self.conv_raw(x)
         fuse_relu = self.activ == "relu"
         if self.norm_type == "in":
-            y = instance_norm(y, relu=fuse_relu, stats=self.stats)
+            y = instance_norm(y, relu=fuse_relu, stats=self.stats,
+                              arith=self.arith)
         elif self.norm_type == "adain":
             if adain_scale is None or adain_bias is None:
                 raise ValueError("adain norm requires style-derived scale/bias")
             y = adain(y, adain_scale, adain_bias, relu=fuse_relu,
-                      stats=self.stats)
+                      stats=self.stats, arith=self.arith)
         else:
             fuse_relu = False
             if self.norm_type == "ln":
@@ -458,7 +489,8 @@ class AdaINResBlocks(nn.Module):
                       adain_bias=style_params[:, b, 0, 0])
             y = second.conv_raw(y)
             x = adain_residual(x, y, style_params[:, b, 1, 1],
-                               style_params[:, b, 1, 0], stats=second.stats)
+                               style_params[:, b, 1, 0], stats=second.stats,
+                               arith=second.arith)
         return x
 
 

@@ -8,7 +8,8 @@ checks device, dtype, shape and layout and raises on anything else; it
 allocates its outputs and the fp32 workspace with `torch.empty`, launches on
 the current stream and raises if the launch failed.  It never falls back to
 PyTorch.  `LAUNCHES` counts the calls that launched each kernel, so a run
-can show that its main path went through them.
+can show that its main path went through them; `ARITH_LAUNCHES` those of
+them made with the bf16 arithmetic (`arith`) on.
 
 A forward returns `(y, stats)`: `stats` is the fp32 [N, 2, C] tensor of
 each sample's mean and the factor that multiplies x - mean (1/sqrt(var+eps)
@@ -23,6 +24,12 @@ rows of its slab of x (the backward: of x and g) in shared memory as its
 plan gives it.  A fused ReLU's mask is recomputed in the backward kernel
 from x and the statistics; `relu_mask_mismatches` counts where that mask
 differs from a forward output's y > 0 (a check; 0 is right).
+
+`arith` (the instance norm and AdaIN, forward and backward): with it on
+and bf16 data the normalise chain runs in bf16, rounded after every op
+(`norm_compute: bf16`, the rule in `ops/norms.py` and the source's
+header); the statistics stay fp32, the plans do not change, and fp32 data
+ignores it.
 
 The sources are `dwcgan_tpu_torch/csrc/norm_kernels.cu` and
 `stem_kernels.cu`; the library is built with nvcc at first use
@@ -43,6 +50,8 @@ LAUNCHES = {"instance_norm": 0, "adain": 0, "adain_residual": 0,
             "layer_norm_ref": 0, "instance_norm_bwd": 0, "adain_bwd": 0,
             "adain_residual_bwd": 0, "layer_norm_ref_bwd": 0,
             "stem_conv7": 0, "stem_conv7_bwd": 0}
+ARITH_LAUNCHES = {"instance_norm": 0, "adain": 0, "adain_residual": 0,
+                  "instance_norm_bwd": 0, "adain_bwd": 0, "adain_residual_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
@@ -50,31 +59,32 @@ _THREADS = 256                                 # threads per block (csrc)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, y, stats, n, hw, c, dtype, two_pass, relu, k, resident, smem, stream
-    "dwc_instance_norm": [_P] * 3 + [_I] * 9 + [_P],
-    # x, scale, bias, residual, y, stats, n, hw, c, dtype, two_pass, relu, k,
-    # resident, smem, stream
-    "dwc_adain": [_P] * 6 + [_I] * 9 + [_P],
+    # x, y, stats, n, hw, c, dtype, two_pass, relu, arith, k, resident, smem,
+    # stream
+    "dwc_instance_norm": [_P] * 3 + [_I] * 10 + [_P],
+    # x, scale, bias, residual, y, stats, n, hw, c, dtype, two_pass, relu,
+    # arith, k, resident, smem, stream
+    "dwc_adain": [_P] * 6 + [_I] * 10 + [_P],
     # x, gamma, beta, y, stats, n, hw, c, dtype, two_pass, k, resident, smem,
     # stream
     "dwc_layer_norm_ref": [_P] * 5 + [_I] * 8 + [_P],
-    # op (0 IN, 1 AdaIN, 2 LayerNorm), dtype, relu, residual, c, k,
+    # op (0 IN, 1 AdaIN, 2 LayerNorm), dtype, relu, residual, arith, c, k,
     # resident, smem, *clusters
-    "dwc_norm_fwd_clusters": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
+    "dwc_norm_fwd_clusters": [_I] * 9 + [ctypes.POINTER(ctypes.c_int)],
     # buf (the forward's phase trace, or NULL)
     "dwc_norm_fwd_trace": [_P],
     # x, g, stats, dx, y (the check's, or NULL), mismatch (or NULL), n, hw,
-    # c, dtype, relu, k, resident, smem, stream
-    "dwc_instance_norm_bwd": [_P] * 6 + [_I] * 8 + [_P],
+    # c, dtype, relu, arith, k, resident, smem, stream
+    "dwc_instance_norm_bwd": [_P] * 6 + [_I] * 9 + [_P],
     # x, g, stats, scale, bias, dx, dscale, dbias, y, mismatch, n, hw, c,
-    # dtype, relu, k, resident, smem, stream
-    "dwc_adain_bwd": [_P] * 10 + [_I] * 8 + [_P],
+    # dtype, relu, arith, k, resident, smem, stream
+    "dwc_adain_bwd": [_P] * 10 + [_I] * 9 + [_P],
     # x, g, stats, gamma, dx, dgamma, dbeta, ws, counter, n, hw, c, dtype, k,
     # resident, smem, stream
     "dwc_layer_norm_ref_bwd": [_P] * 9 + [_I] * 7 + [_P],
-    # op (0 IN, 1 AdaIN, 2 LayerNorm), dtype, relu, check, c, k, resident,
-    # smem, *clusters
-    "dwc_norm_bwd_clusters": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
+    # op (0 IN, 1 AdaIN, 2 LayerNorm), dtype, relu, check, arith, c, k,
+    # resident, smem, *clusters
+    "dwc_norm_bwd_clusters": [_I] * 9 + [ctypes.POINTER(ctypes.c_int)],
     # x, w2p, y, stats, ws, n, h, w, c, dtype, norm_in, relu, pad, two_pass,
     # stream
     "dwc_stem_conv7": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
@@ -139,9 +149,11 @@ def _f32(*shape, like: torch.Tensor) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
-def _run(name: str, fn, device, *args, count: bool = True) -> None:
+def _run(name: str, fn, device, *args, count: bool = True,
+         arith: bool = False) -> None:
     """Launch `fn(*args, stream)` on `device`'s current stream; count it
-    (unless `count` is off: a check, not the op)."""
+    (unless `count` is off: a check, not the op), and in ARITH_LAUNCHES
+    too when it ran with `arith` on."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -149,6 +161,8 @@ def _run(name: str, fn, device, *args, count: bool = True) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     if count:
         LAUNCHES[name] += 1
+        if arith:
+            ARITH_LAUNCHES[name] += 1
 
 
 def _ptr(t):
@@ -281,65 +295,78 @@ def _clusters(name: str, fn, device: int, args) -> int:
 
 @functools.lru_cache(maxsize=None)
 def fwd_clusters(device: int, op: int, dtype: torch.dtype, relu: bool,
-                 residual: bool, c: int, plan: ClusterPlan) -> int:
+                 residual: bool, c: int, plan: ClusterPlan,
+                 arith: bool = False) -> int:
     """Set the cluster forward up for this configuration (op 0 instance
-    norm, 1 AdaIN, 2 the LayerNorm) on card `device` (once) and return how
-    many of its clusters fit on the card at once; raise if none does."""
+    norm, 1 AdaIN, 2 the LayerNorm; `arith`: norm_compute bf16) on card
+    `device` (once) and return how many of its clusters fit on the card at
+    once; raise if none does."""
     return _clusters("norm forward", _lib().dwc_norm_fwd_clusters, device,
-                     (op, _DTYPE_CODE[dtype], int(relu), int(residual), c,
-                      plan.k, plan.resident, plan.smem))
+                     (op, _DTYPE_CODE[dtype], int(relu), int(residual),
+                      int(arith), c, plan.k, plan.resident, plan.smem))
 
 
 @functools.lru_cache(maxsize=None)
 def bwd_clusters(device: int, op: int, dtype: torch.dtype, relu: bool,
-                 check: bool, c: int, plan: ClusterPlan) -> int:
+                 check: bool, c: int, plan: ClusterPlan,
+                 arith: bool = False) -> int:
     """The same for the cluster backward (op 0 instance norm, 1 AdaIN, 2
     the LayerNorm; `check`: the mask-check variant)."""
     return _clusters("norm backward", _lib().dwc_norm_bwd_clusters, device,
-                     (op, _DTYPE_CODE[dtype], int(relu), int(check), c, plan.k,
-                      plan.resident, plan.smem))
+                     (op, _DTYPE_CODE[dtype], int(relu), int(check), int(arith),
+                      c, plan.k, plan.resident, plan.smem))
 
 
 # ------------------------------------------------------------------ forward
 
+def _arith(x: torch.Tensor, arith: bool) -> bool:
+    """Whether the bf16 arithmetic applies: asked for, on bf16 data."""
+    return bool(arith) and x.dtype == torch.bfloat16
+
+
 def _forward(name: str, fn, x: torch.Tensor, op: int, relu: bool,
-             residual: bool, two_pass: bool, params, plan: ClusterPlan):
+             residual: bool, two_pass: bool, params, plan: ClusterPlan,
+             arith: bool = False):
     """One launch of the cluster forward on x; `params`: the pointers
     between x and y in `fn`'s signature.  Returns (y, stats)."""
     n, c, h, w = x.shape
     plan = plan or fwd_plan(n, h * w, c, x.dtype)
-    fwd_clusters(x.device.index or 0, op, x.dtype, relu, residual, c, plan)
+    arith = _arith(x, arith)
+    fwd_clusters(x.device.index or 0, op, x.dtype, relu, residual, c, plan, arith)
     y = torch.empty_like(x, memory_format=torch.channels_last)
     stats = _f32(n, 2, c, like=x)
-    flags = (int(two_pass),) if op == _LN else (int(two_pass), int(relu))
+    flags = (int(two_pass),) if op == _LN else (int(two_pass), int(relu), int(arith))
     _run(name, fn, x.device, x.data_ptr(), *params, y.data_ptr(), stats.data_ptr(),
-         n, h * w, c, _DTYPE_CODE[x.dtype], *flags, plan.k, plan.resident, plan.smem)
+         n, h * w, c, _DTYPE_CODE[x.dtype], *flags, plan.k, plan.resident, plan.smem,
+         arith=arith)
     return y, stats
 
 
 def instance_norm(x: torch.Tensor, relu: bool = False, two_pass: bool = True,
-                  plan: ClusterPlan = None):
+                  plan: ClusterPlan = None, arith: bool = False):
     """Per-(n, c) instance norm over H*W, no affine, optional fused ReLU.
     Returns (y, stats).  `plan`: a layout other than `fwd_plan`'s (a
-    sweep's)."""
+    sweep's); `arith`: norm_compute bf16 (module docstring)."""
     _check_activation("instance_norm", x)
     return _forward("instance_norm", _lib().dwc_instance_norm, x, _IN, relu,
-                    False, two_pass, (), plan)
+                    False, two_pass, (), plan, arith)
 
 
 def adain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-          relu: bool = False, two_pass: bool = True, plan: ClusterPlan = None):
+          relu: bool = False, two_pass: bool = True, plan: ClusterPlan = None,
+          arith: bool = False):
     """IN(x) * scale[n, c] + bias[n, c], optional fused ReLU.
     Returns (y, stats)."""
     _check_activation("adain", x)
     for p in (scale, bias):
         _check_param("adain", x, p, x.shape[:2])
     return _forward("adain", _lib().dwc_adain, x, _ADAIN, relu, False, two_pass,
-                    (scale.data_ptr(), bias.data_ptr(), None), plan)
+                    (scale.data_ptr(), bias.data_ptr(), None), plan, arith)
 
 
 def adain_residual(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
-                   bias: torch.Tensor, two_pass: bool = True, plan: ClusterPlan = None):
+                   bias: torch.Tensor, two_pass: bool = True, plan: ClusterPlan = None,
+                   arith: bool = False):
     """x + AdaIN(y): the add is fused into the kernel's store.  Returns
     (out, stats of y)."""
     _check_activation("adain_residual", y)
@@ -347,7 +374,8 @@ def adain_residual(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
     for p in (scale, bias):
         _check_param("adain_residual", y, p, y.shape[:2])
     return _forward("adain_residual", _lib().dwc_adain, y, _ADAIN, False, True,
-                    two_pass, (scale.data_ptr(), bias.data_ptr(), x.data_ptr()), plan)
+                    two_pass, (scale.data_ptr(), bias.data_ptr(), x.data_ptr()), plan,
+                    arith)
 
 
 def fwd_trace(fn, x: torch.Tensor, plan: ClusterPlan = None) -> torch.Tensor:
@@ -390,40 +418,43 @@ def _check_stats(name: str, x: torch.Tensor, stats: torch.Tensor) -> None:
 
 
 def _bwd_common(name: str, x, g, stats, op: int, relu: bool, check: bool = False,
-                plan: ClusterPlan = None):
+                plan: ClusterPlan = None, arith: bool = False):
     """Checks, the plan and its setup; returns (n, hw, c, plan)."""
     _check_activation(name, x)
     _check_like(name, x, g)
     _check_stats(name, x, stats)
     n, c, h, w = x.shape
     plan = plan or (ln_bwd_plan if op == _LN else bwd_plan)(n, h * w, c, x.dtype)
-    bwd_clusters(x.device.index or 0, op, x.dtype, relu, check, c, plan)
+    bwd_clusters(x.device.index or 0, op, x.dtype, relu, check, c, plan, arith)
     return n, h * w, c, plan
 
 
 def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
-                      relu: bool = False) -> torch.Tensor:
+                      relu: bool = False, arith: bool = False) -> torch.Tensor:
     """dx of `instance_norm` at x, given the incoming gradient g and the
     forward's stats; `relu`: the forward fused a ReLU (its mask is
-    recomputed from x and the stats)."""
+    recomputed from x and the stats); `arith`: the forward's."""
     name = "instance_norm_bwd"
-    n, hw, c, plan = _bwd_common(name, x, g, stats, _IN, relu)
+    arith = _arith(x, arith)
+    n, hw, c, plan = _bwd_common(name, x, g, stats, _IN, relu, arith=arith)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     _run(name, _lib().dwc_instance_norm_bwd, x.device, x.data_ptr(), g.data_ptr(),
          stats.data_ptr(), dx.data_ptr(), None, None, n, hw, c,
-         _DTYPE_CODE[x.dtype], int(relu), plan.k, plan.resident, plan.smem)
+         _DTYPE_CODE[x.dtype], int(relu), int(arith), plan.k, plan.resident, plan.smem,
+         arith=arith)
     return dx
 
 
 def adain_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
               scale: torch.Tensor, bias: torch.Tensor = None, relu: bool = False,
-              residual: bool = False):
+              residual: bool = False, arith: bool = False):
     """(dx, dscale, dbias) of AdaIN at x; `relu`: the forward fused a ReLU,
     whose mask is recomputed from x, the stats, scale and `bias`.
     `residual`: the call is the backward of `adain_residual` (counted
-    apart; its x gradient is g itself)."""
+    apart; its x gradient is g itself); `arith`: the forward's."""
     name = "adain_residual_bwd" if residual else "adain_bwd"
-    n, hw, c, plan = _bwd_common(name, x, g, stats, _ADAIN, relu)
+    arith = _arith(x, arith)
+    n, hw, c, plan = _bwd_common(name, x, g, stats, _ADAIN, relu, arith=arith)
     _check_param(name, x, scale, x.shape[:2])
     if relu:
         _check_param(name, x, bias, x.shape[:2])
@@ -432,13 +463,14 @@ def adain_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
     _run(name, _lib().dwc_adain_bwd, x.device, x.data_ptr(), g.data_ptr(),
          stats.data_ptr(), scale.data_ptr(), _ptr(bias) if relu else None,
          dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), None, None, n, hw, c,
-         _DTYPE_CODE[x.dtype], int(relu), plan.k, plan.resident, plan.smem)
+         _DTYPE_CODE[x.dtype], int(relu), int(arith), plan.k, plan.resident, plan.smem,
+         arith=arith)
     return dx, dscale, dbias
 
 
 def relu_mask_mismatches(x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor,
                          scale: torch.Tensor = None,
-                         bias: torch.Tensor = None) -> int:
+                         bias: torch.Tensor = None, arith: bool = False) -> int:
     """How many elements of the ReLU mask that the instance-norm (AdaIN
     with `scale` and `bias`) backward kernel recomputes from x and the
     stats differ from y > 0, y the forward's fused-ReLU output: the same
@@ -446,7 +478,9 @@ def relu_mask_mismatches(x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor,
     launch; synchronises to read the count."""
     adain = scale is not None
     name = "relu_mask_mismatches"
-    n, hw, c, plan = _bwd_common(name, x, y, stats, int(adain), True, True)
+    arith = _arith(x, arith)
+    n, hw, c, plan = _bwd_common(name, x, y, stats, int(adain), True, True,
+                                 arith=arith)
     count = torch.zeros(1, dtype=torch.int32, device=x.device)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     if adain:
@@ -456,13 +490,13 @@ def relu_mask_mismatches(x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor,
         _run(name, _lib().dwc_adain_bwd, x.device, x.data_ptr(), y.data_ptr(),
              stats.data_ptr(), scale.data_ptr(), bias.data_ptr(), dx.data_ptr(),
              d[0].data_ptr(), d[1].data_ptr(), y.data_ptr(), count.data_ptr(), n,
-             hw, c, _DTYPE_CODE[x.dtype], 1, plan.k, plan.resident, plan.smem,
-             count=False)
+             hw, c, _DTYPE_CODE[x.dtype], 1, int(arith), plan.k, plan.resident,
+             plan.smem, count=False)
     else:
         _run(name, _lib().dwc_instance_norm_bwd, x.device, x.data_ptr(),
              y.data_ptr(), stats.data_ptr(), dx.data_ptr(), y.data_ptr(),
-             count.data_ptr(), n, hw, c, _DTYPE_CODE[x.dtype], 1, plan.k,
-             plan.resident, plan.smem, count=False)
+             count.data_ptr(), n, hw, c, _DTYPE_CODE[x.dtype], 1, int(arith),
+             plan.k, plan.resident, plan.smem, count=False)
     return int(count.item())
 
 

@@ -91,9 +91,10 @@ class MaskedBiLSTM(nn.LSTM):
         return out, h, c
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None, rows=None):
         """x: [B, T, D] in the compute dtype; lengths: [B] (>= 1), best on
-        the host.
+        the host.  The inter-layer dropout's mask is drawn from `rng` at the
+        full length T (`rows`: this rank's rows of the global batch's).
 
         Returns (outputs [B, T, 2H], zero past each length; final h and c,
         each [num_layers, 2, B, H] with dim 1 the direction: 0 fwd, 1 bwd).
@@ -107,7 +108,8 @@ class MaskedBiLSTM(nn.LSTM):
         hs, cs = [], []
         for layer in range(self.num_layers):
             if layer:
-                out = dropout(out, self.dropout, self.training, rng)
+                out = dropout(out, self.dropout, self.training, rng, rows,
+                              length=total)
             out, h, c = self._layer(out, lengths, layer, lmin)
             hs.append(h)
             cs.append(c)

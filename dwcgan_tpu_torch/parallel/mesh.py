@@ -1,0 +1,214 @@
+"""Data-parallel training (the counterpart of the data axis of
+`dwcgan_tpu/parallel/mesh.py`).
+
+The JAX meaning, which the port keeps: `cfg.batch_size` is the *global*
+batch; each of the k ranks of the data axis takes `batch_size / k` rows,
+and the step is one program on the global batch whose gradients are
+averaged (mesh.py:1-17).  Its random tensors are drawn at the global shape
+from the step's generator and each rank keeps its own rows (mesh.py:14-16;
+`Rows`), so every rank's `state.rng` stays in step with the others and
+with a one-process run on the global batch.
+
+Every loss term of the step is a mean over the batch's rows (the
+adversarial and classification terms, GP, R1, `gmm_kl`, `gmm_emd`,
+`recon_l1`, `diversity_loss` and the VGG term: `losses/`, `models/vgg.py`),
+so with equal local batches, which `DataAxis` enforces, the mean of the
+ranks' gradients is the gradient of the global batch's loss, and the mean
+of their metrics its metrics, up to the all-reduce's summation order.
+
+The collectives are explicit (`all_reduce_grads` between a backward and
+Adam, `all_reduce_metrics` on the step's metrics), not
+`DistributedDataParallel`: the step runs the discriminator twice before
+one backward, runs G's adversarial head through D with D's parameters
+taking no gradient, and reads G's gradients for `grad_gen_norm` before
+Adam.  Parameters, Adam's moments and the EMA copies are replicated, and
+stay so.
+
+Launch: `python -m torch.distributed.run --nproc_per_node=N -m
+dwcgan_tpu_torch.cli.train ...` (NCCL, one card a rank); in one process
+the data axis is rank 0 of 1 and nothing changes.  Tensor parallelism
+(`mesh_model > 1`, mesh.py:32-54) is not ported.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from dwcgan_tpu_torch.device import resolve_device
+
+TP_NOT_PORTED = "tensor parallelism (mesh_model > 1) is not ported yet"
+
+
+def maybe_initialize_distributed(device="cuda") -> torch.device:
+    """Join the process group when the environment says `WORLD_SIZE > 1`
+    (as `torch.distributed.run` sets it; the counterpart of mesh.py:57-77):
+    `init_process_group(init_method="env://")`, NCCL for a CUDA device and
+    gloo for the CPU, each rank on `cuda:LOCAL_RANK`.  Without `WORLD_SIZE`
+    (or with 1) it does nothing, so a plain run never waits on a
+    rendezvous.  Returns this rank's device."""
+    dev = torch.device(device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        if dev.type == "cuda":
+            resolve_device("cuda")   # raises without a card
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method="env://")
+    return resolve_device(device)
+
+
+@dataclass(frozen=True)
+class Rows:
+    """This rank's rows of a global batch of `global_n`: [offset, offset +
+    n).  A draw for a tensor whose leading dimension is k * n (a
+    pass-batched call on k batches concatenated, e.g. the re-encode of
+    [rec, fake, fake1] at 3n) is made at k * global_n, the one-process
+    run's shape and order, and keeps this rank's rows of each of its k
+    chunks."""
+    global_n: int
+    offset: int
+    n: int
+
+    def draw(self, fn, shape: Sequence[int], generator=None, device=None):
+        """`fn(global shape, generator=, device=)` (torch.rand or
+        torch.randn) cut to this rank's rows: a tensor of `shape`."""
+        shape = tuple(shape)
+        k, rest = divmod(shape[0], self.n)
+        if rest or k < 1:
+            raise ValueError(f"a draw of leading size {shape[0]} is not whole "
+                             f"chunks of this rank's {self.n} rows")
+        full = fn((k * self.global_n,) + shape[1:], generator=generator,
+                  device=device)
+        chunks = full.view((k, self.global_n) + shape[1:])
+        return chunks[:, self.offset:self.offset + self.n].reshape(shape)
+
+
+def draw(fn, shape, generator=None, device=None, rows: Optional[Rows] = None):
+    """`fn(shape, generator=, device=)`, or with `rows` this rank's rows of
+    the draw at the global shape (`Rows.draw`)."""
+    if rows is None:
+        return fn(tuple(shape), generator=generator, device=device)
+    return rows.draw(fn, shape, generator, device)
+
+
+@dataclass(frozen=True)
+class DataAxis:
+    """The data axis of one run: this rank, the world size, the global and
+    the local batch.  Built by `from_config`; in one process rank 0 of 1.
+    `grouped`: a process group exists, so the collectives run (a group of
+    one rank included)."""
+    rank: int
+    world: int
+    global_batch: int
+    grouped: bool = False
+
+    @property
+    def local_batch(self) -> int:
+        return self.global_batch // self.world
+
+    @property
+    def rows(self) -> Rows:
+        """This rank's rows of the global batch, or None in one process
+        without a group (every draw is the global one)."""
+        if not self.grouped:
+            return None
+        return Rows(self.global_batch, self.rank * self.local_batch,
+                    self.local_batch)
+
+    @classmethod
+    def from_config(cls, cfg) -> "DataAxis":
+        """From the config (`check_mesh`) and the process group's rank and
+        size, or rank 0 of 1 without one."""
+        grouped = dist.is_available() and dist.is_initialized()
+        rank = dist.get_rank() if grouped else 0
+        world = dist.get_world_size() if grouped else 1
+        check_mesh(cfg, world)
+        return cls(rank, world, cfg.batch_size, grouped)
+
+
+def check_mesh(cfg, world: int) -> int:
+    """The data axis's size for `world` ranks: `cfg.mesh_data` (-1: the
+    world size; anything else must equal it), `cfg.mesh_model` (above 1
+    raises: tensor parallelism is not ported) and `cfg.batch_size` (the
+    global batch, divisible by the data axis), with JAX's messages
+    (dwcgan_tpu/parallel/mesh.py:86-88, dwcgan_tpu/cli/train.py:130-132)."""
+    model = cfg.mesh_model
+    if model > 1:
+        raise NotImplementedError(TP_NOT_PORTED)
+    data = world if cfg.mesh_data == -1 else cfg.mesh_data
+    if data * model > world:
+        raise ValueError(f"mesh {data}x{model} needs {data * model} devices, "
+                         f"have {world}")
+    if data != world:
+        raise ValueError(f"mesh {data}x{model} over {world} devices: the data "
+                         "axis is every rank (mesh_data -1 or the world size)")
+    if cfg.batch_size % data:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} must be divisible by the data mesh "
+            f"axis ({data}); set batch_size or mesh_data accordingly")
+    return data
+
+
+def _flat_grads(params):
+    """The parameters' gradients in order as one fp32 buffer (a missing
+    one as zeros, as `train/step.py::_apply` gives it), and the views to
+    copy it back."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return torch.cat([p.grad.reshape(-1).float() for p in params])
+
+
+def all_reduce_grads(params, axis: Optional[DataAxis]) -> None:
+    """Average the gradients of `params` over the data axis: one fp32
+    buffer of them in parameter order, all-reduced with SUM, divided by
+    the world size, copied back.  Runs after a backward, before Adam.
+    Without a process group it does nothing (no copy, no collective); with
+    a group of any size, one rank included, it runs the collective."""
+    if axis is None or not axis.grouped:
+        return
+    params = list(params)
+    buf = _flat_grads(params)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    buf.div_(axis.world)
+    offset = 0
+    for p in params:
+        n = p.grad.numel()
+        p.grad.copy_(buf[offset:offset + n].view_as(p.grad))
+        offset += n
+
+
+# metrics that are not averaged: Python floats, and the gradient norms of
+# already-averaged gradients (the same on every rank)
+NOT_AVERAGED = ("grad_gen_norm", "grad_dis_norm")
+
+
+def all_reduce_metrics(metrics: Dict, axis: Optional[DataAxis]) -> Dict:
+    """The step's 0-d metric tensors averaged over the data axis in one
+    collective; Python floats (`lr`, `ds_w`) and the gradient norms stay
+    as they are.  Without a process group, `metrics` itself."""
+    if axis is None or not axis.grouped:
+        return metrics
+    keys = [k for k, v in metrics.items()
+            if torch.is_tensor(v) and k not in NOT_AVERAGED]
+    if not keys:
+        return metrics
+    stacked = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(stacked, op=dist.ReduceOp.SUM)
+    stacked.div_(axis.world)
+    return {**metrics, **{k: stacked[i] for i, k in enumerate(keys)}}
+
+
+def barrier(axis: Optional[DataAxis]) -> None:
+    if axis is not None and axis.grouped:
+        dist.barrier()
+
+
+def destroy() -> None:
+    """Leave the process group, where one exists."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

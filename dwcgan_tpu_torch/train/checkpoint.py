@@ -10,6 +10,12 @@ that `restore` checks.  Restoring all of it makes a resumed run the same
 run: the schedules are functions of the step, and the draws continue from
 the saved generator state.  A file is written under a temporary name and
 then renamed, so a crash never leaves a half-written file as the latest.
+
+Data parallel (`axis`): rank 0 writes and the other ranks wait at a
+barrier until the file is there; every rank restores from the same file.
+Every tensor of the state is replicated over the data axis, so the file
+holds the whole state and restores into any world size (the counterpart
+of `tests/test_cross_topology_ckpt.py`).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from dwcgan_tpu_torch.parallel.mesh import DataAxis, barrier
 from dwcgan_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^ckpt_(\d{8,})\.pt$")
@@ -85,13 +92,15 @@ def _load_optimizer(opt: torch.optim.Optimizer, saved: Dict) -> None:
 
 class CheckpointManager:
     """Saves and restores the `TrainState` in `directory`, keeping the
-    newest `max_to_keep` files."""
+    newest `max_to_keep` files; `axis`: the data axis of a data-parallel
+    run (rank 0 writes)."""
 
     def __init__(self, directory: str, max_to_keep: int = 5,
-                 header: Optional[Dict] = None):
+                 header: Optional[Dict] = None, axis: Optional[DataAxis] = None):
         self.directory = directory
         self.max_to_keep = max_to_keep
         self.header = dict(header or {})
+        self.axis = axis
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
@@ -101,9 +110,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, state: TrainState) -> str:
-        """Write the state at `state.step`; returns the file's path."""
-        os.makedirs(self.directory, exist_ok=True)
+        """Write the state at `state.step` (rank 0 of a data axis; the
+        others wait for it); returns the file's path."""
         final = self.path(state.step)
+        if self.axis is None or self.axis.rank == 0:
+            self._write(state, final)
+        barrier(self.axis)
+        return final
+
+    def _write(self, state: TrainState, final: str) -> None:
+        os.makedirs(self.directory, exist_ok=True)
         tmp = final + ".tmp"
         payload = {
             "header": self.header, "step": int(state.step),
@@ -121,7 +137,6 @@ class CheckpointManager:
         os.replace(tmp, final)
         for old in checkpoint_steps(self.directory)[:-self.max_to_keep]:
             os.remove(self.path(old))
-        return final
 
     def restore(self, template: TrainState,
                 step: Optional[int] = None) -> TrainState:

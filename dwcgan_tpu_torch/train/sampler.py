@@ -20,10 +20,8 @@ from dwcgan_tpu_torch.train.sampling import (blend_attention, sample_style,
 
 
 def _serving_mode(cfg: Config, gen) -> None:
-    if cfg.norm_compute != "fp32":
-        raise NotImplementedError(
-            f"norm_compute {cfg.norm_compute!r}: only 'fp32' is ported so far")
     gen.set_norm_stats(cfg.norm_stats)
+    gen.set_norm_compute(cfg.norm_compute)
     gen.eval()
 
 
@@ -32,7 +30,8 @@ def make_infer_fn(cfg: Config, gen):
 
     x_real: [N, H, W, 3] in [-1, 1]; txt: [N, T] token ids; txt_len: [N];
     all on the generator's device.  Output: fp32 NHWC.  The norms form their
-    variance as `cfg.norm_stats` says; everything runs in eval mode under
+    variance as `cfg.norm_stats` says and normalise in the arithmetic of
+    `cfg.norm_compute`; everything runs in eval mode under
     `torch.inference_mode()`.
     """
     _serving_mode(cfg, gen)

@@ -7,20 +7,23 @@ from typing import Optional
 
 import torch
 
+from dwcgan_tpu_torch.parallel.mesh import draw
+
 
 def sample_style(comp_means: torch.Tensor, c_dim: int, stddev: float,
                  eps: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 rows=None) -> torch.Tensor:
     """One style per sample from the attribute GMM: each attribute's c_dim
     block is N(mean_k, stddev), attribute-major -> [N, K * c_dim] fp32.
 
     The standard-normal draws are `eps` ([N, K, c_dim]) when given (tests
     inject the numbers JAX drew), else they come from `generator` (on the
-    device of `comp_means`)."""
+    device of `comp_means`; `rows`: this rank's rows of the draw at the
+    global batch, `parallel.mesh.Rows`)."""
     n, k = comp_means.shape
     if eps is None:
-        eps = torch.randn((n, k, c_dim), generator=generator,
-                          device=comp_means.device)
+        eps = draw(torch.randn, (n, k, c_dim), generator, comp_means.device, rows)
     z = comp_means.float()[:, :, None] + stddev * eps.float()
     return z.reshape(n, k * c_dim)
 

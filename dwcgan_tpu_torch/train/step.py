@@ -31,6 +31,17 @@ G forward), "d_style1" (the non-shared D phase), "gp_alpha".
 
 Metrics are 0-d tensors on the device (no host sync inside the step),
 except `lr` and `ds_w`, which are Python floats.
+
+Data parallel (`axis`, a `parallel.mesh.DataAxis`): `batch` holds this
+rank's rows of the global batch, every random draw is made at the global
+batch and cut to them (`axis.rows`; the pass-batched calls at 3n, 4n and
+2n keep their rows of each chunk), each net's gradients are averaged over
+the ranks between its backward and its gradient norm (`all_reduce_grads`,
+so the norm and Adam see the global gradient), and the returned metrics
+are averaged (`all_reduce_metrics`).  Every loss term is a mean over the
+batch's rows (`parallel/mesh.py`), so the ranks together take the step of
+one process on the global batch.  EMA needs nothing: replicated weights
+stay replicated.
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ from dwcgan_tpu_torch.config import Config
 from dwcgan_tpu_torch.losses.gan import (dis_loss, diversity_loss, gen_adv_loss,
                                          gradient_penalty, r1_penalty, recon_l1)
 from dwcgan_tpu_torch.losses.gmm import gmm_emd, gmm_kl
+from dwcgan_tpu_torch.parallel.mesh import (DataAxis, all_reduce_grads,
+                                            all_reduce_metrics, draw)
 from dwcgan_tpu_torch.train.sampling import blend_attention, sample_style
 from dwcgan_tpu_torch.train.schedules import lr_schedule
 from dwcgan_tpu_torch.train.state import TrainState, ema_update
@@ -81,21 +94,20 @@ def _apply(opt: torch.optim.Adam, lr: float) -> None:
 
 
 def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
-                    _deterministic: bool = False):
+                    _deterministic: bool = False, axis: Optional[DataAxis] = None):
     """Build step(state, batch, draws=None) -> metrics (module docstring).
 
     `gen`, `dis`, `gen_opt` and `dis_opt` are the ones `state` holds;
-    `vgg_loss_fn`: (x, y) -> scalar perceptual loss, or None (term off)."""
+    `vgg_loss_fn`: (x, y) -> scalar perceptual loss, or None (term off);
+    `axis`: the data axis of a data-parallel run (None: one process)."""
     if cfg.dis.norm == "bn":
         raise ValueError(
             "dis.norm='bn' is incompatible with the pass-batched step: "
             "batch-norm statistics would mix real and fake samples in the "
             "concatenated discriminator pass (use 'none', 'in' or 'ln')")
-    if cfg.norm_compute != "fp32":
-        raise NotImplementedError(
-            f"norm_compute {cfg.norm_compute!r}: only 'fp32' is ported so far")
-    gen.set_norm_stats(cfg.norm_stats)
-    dis.set_norm_stats(cfg.norm_stats)
+    for net in (gen, dis):
+        net.set_norm_stats(cfg.norm_stats)
+        net.set_norm_compute(cfg.norm_compute)
     gen.train()
     dis.train()
     gen.set_dropout(not _deterministic)
@@ -107,6 +119,7 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
     # (its gradient counts in grad_gen_norm, as in the JAX step)
     gen_params = [p for p in gen.parameters() if p.requires_grad]
     dis_params = [p for p in dis.parameters() if p.requires_grad]
+    rows = axis.rows if axis is not None else None
 
     def chunk(t, k):
         return t.chunk(k) if t is not None else (None,) * k
@@ -128,8 +141,8 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
         if cfg.gp_w > 0:
             alpha = draws.get("gp_alpha")
             if alpha is None:
-                alpha = torch.rand((n, 1, 1, 1), generator=state.rng,
-                                   device=x_real.device)
+                alpha = draw(torch.rand, (n, 1, 1, 1), state.rng, x_real.device,
+                             rows)
             x_hat = alpha * x_real + (1 - alpha) * x_fake
             loss_gp = gradient_penalty(src0, x_hat) * cfg.gp_w
             loss = loss + loss_gp
@@ -143,6 +156,7 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
         for p in dis_params:
             p.grad = None
         loss.backward()
+        all_reduce_grads(dis_params, axis)
         metrics["grad_dis_norm"] = _global_norm(dis_params)
         _apply(dis_opt, lr)
         return metrics
@@ -155,13 +169,13 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
         rng = state.rng
         x_real = batch.image
         n = x_real.shape[0]
-        content_real, mu, logvar = gen.encode(x_real, rng)
+        content_real, mu, logvar = gen.encode(x_real, rng, rows)
         style_real = mu.reshape(n, -1)
         mu_txt, logvar_txt = gen.encode_txt(style_real, batch.txt,
-                                            batch.txt_len, rng)
+                                            batch.txt_len, rng, rows)
         style_txt = mu_txt.reshape(n, -1)
-        style1 = sample_style(c_trg, C, stddev, draws.get("style1"), rng)
-        style2 = sample_style(c_trg, C, stddev, draws.get("style2"), rng)
+        style1 = sample_style(c_trg, C, stddev, draws.get("style1"), rng, rows)
+        style2 = sample_style(c_trg, C, stddev, draws.get("style2"), rng, rows)
 
         # the four decodes share content_real: one decoder pass at 4n
         x4, att4 = gen.decode(content_real.repeat(4, 1, 1, 1),
@@ -175,7 +189,8 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
         loss_ds = diversity_loss(x_fake1, x_fake2)
 
         # re-encode {reconstruction, text-guided fake, sampled fake} at 3n
-        content3, mu3, _ = gen.encode(torch.cat([x_real_rec, x_fake, x_fake1]), rng)
+        content3, mu3, _ = gen.encode(torch.cat([x_real_rec, x_fake, x_fake1]),
+                                      rng, rows)
         content_real_rec, content_fake_rec, content_rand = content3.chunk(3)
         mu_rec, mu_fake_rec, mu_rand = mu3.chunk(3)
 
@@ -246,6 +261,7 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
         for p in gen_params:
             p.grad = None
         total.backward()
+        all_reduce_grads(gen_params, axis)
         metrics = {**aux, "loss_gen_adv": loss_adv.detach(),
                    "loss_gen_total": total.detach(),
                    "grad_gen_norm": _global_norm(gen_params)}
@@ -256,7 +272,7 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
         ema_update(state.ema_gen, gen)
         ema_update(state.ema_dis, dis)
         state.step += 1
-        return {**d_metrics, **g_metrics, "lr": lr}
+        return all_reduce_metrics({**d_metrics, **g_metrics, "lr": lr}, axis)
 
     def labels(batch):
         return batch.src_label * 2.0 - 1.0, batch.trg_label * 2.0 - 1.0
@@ -285,11 +301,11 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
         x_real = batch.image
         n = x_real.shape[0]
         with torch.no_grad():   # D's own fakes (solver.py:320-331)
-            content, mu, _ = gen.encode(x_real, state.rng)
+            content, mu, _ = gen.encode(x_real, state.rng, rows)
             mu_txt, _ = gen.encode_txt(mu.reshape(n, -1), batch.txt,
-                                       batch.txt_len, state.rng)
+                                       batch.txt_len, state.rng, rows)
             style1 = sample_style(c_trg, C, stddev, draws.get("d_style1"),
-                                  state.rng)
+                                  state.rng, rows)
             x2, att2 = gen.decode(content.repeat(2, 1, 1, 1),
                                   torch.cat([mu_txt.reshape(n, -1), style1]))
             xf, xf1 = x2.chunk(2)

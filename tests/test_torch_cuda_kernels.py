@@ -633,3 +633,106 @@ def test_to_device_goes_through_pinned_memory(card):
     assert all(x.is_cuda for x in t[:4]) and t.txt_len.device.type == "cpu"
     for x, y in zip(t, b):
         np.testing.assert_array_equal(x.cpu().numpy(), np.asarray(y))
+
+
+# ------------------------------- norm_compute bf16: the kernels' arith mode
+
+ARITH_SHAPES = [(32, 64, 128, 128), (16, 256, 32, 32), (64, 256, 32, 32),
+                (2, 16, 7, 9), (1, 8, 2, 3)]
+
+
+def _arith_case(op, relu, shape, stats, dev, seed):
+    """Rows 1-3 with arith on, bf16: the forward's (y, statistics), an
+    incoming gradient and a function running the backward with arith on."""
+    args = _args(op, shape, torch.bfloat16, dev, seed)
+    two_pass = stats == "2pass"
+    if op == "instance_norm":
+        y, st = kernels.instance_norm(args[0], relu=relu, two_pass=two_pass, arith=True)
+        run = lambda g: (kernels.instance_norm_bwd(args[0], g, st, relu=relu, arith=True),)
+    elif op == "adain":
+        y, st = kernels.adain(*args, relu=relu, two_pass=two_pass, arith=True)
+        run = lambda g: kernels.adain_bwd(args[0], g, st, args[1], args[2], relu=relu,
+                                          arith=True)
+    else:
+        y, st = kernels.adain_residual(*args, two_pass=two_pass, arith=True)
+        run = lambda g: kernels.adain_bwd(args[1], g, st, args[2], residual=True,
+                                          arith=True)
+    g = torch.randn(y.shape, generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                    device=dev).to(torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+    return args, y, st, g, run
+
+
+@pytest.mark.parametrize("stats", ["2pass", "1pass"])
+@pytest.mark.parametrize("op,relu", CLUSTER_OPS)
+@pytest.mark.parametrize("shape", ARITH_SHAPES)
+def test_bf16_arith_forward_matches_plain(card, shape, op, relu, stats):
+    """Rows 1-3 with `arith` on: y bit-equal to the plain bf16 chain fed
+    the kernel's own statistics (every rounding at its point, no
+    contraction); the statistics within fp32 summation order of the plain
+    ones; y within 2 bf16 ulps (plus 1e-4) of the plain bf16-arithmetic
+    forward wherever the two sides' statistics round to the same bf16
+    values; a second run bit-equal; fp32 data with arith on bit-equal to
+    arith off."""
+    args, y, st, _, _ = _arith_case(op, relu, shape, stats, card, 7)
+    again = _arith_case(op, relu, shape, stats, card, 7)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    x = args[1] if op == "adain_residual" else args[0]
+    affine = tuple(args[-2:]) if op != "instance_norm" else (None, None)
+    res = args[0] if op == "adain_residual" else None
+    assert torch.equal(y, norms.bf16_chain_plain(x, st, *affine, relu=relu, residual=res))
+    mean, var = norms._moments_hw(x.float(), stats)
+    mean, rstd = mean.flatten(1), torch.rsqrt(var + norms.EPS).flatten(1)
+    torch.testing.assert_close(st[:, 0], mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(st[:, 1], rstd, atol=1e-5, rtol=1e-5)
+    if op == "instance_norm":
+        plain = norms.instance_norm_plain(x, relu, stats, "bf16")
+    elif op == "adain":
+        plain = norms.adain_plain(*args, relu=relu, stats=stats, arith="bf16")
+    else:
+        plain = norms.adain_residual_plain(*args, stats=stats, arith="bf16")
+    bf = lambda t: t.to(torch.bfloat16)
+    same = (bf(st[:, 0]) == bf(mean)) & (bf(st[:, 1]) == bf(rstd))
+    err = (y.float() - plain.float()).abs()[same[:, :, None, None].expand_as(y)]
+    tol = (2 * _ulp(plain) + 1e-4)[same[:, :, None, None].expand_as(y)]
+    assert bool((err <= tol).all()), float(err.max())
+    x32 = [a.float().contiguous(memory_format=torch.channels_last) if a.dim() == 4 else a
+           for a in args]
+    two = stats == "2pass"
+    calls = {"instance_norm": lambda arith: kernels.instance_norm(
+        *x32, relu=relu, two_pass=two, arith=arith),
+        "adain": lambda arith: kernels.adain(*x32, relu=relu, two_pass=two, arith=arith),
+        "adain_residual": lambda arith: kernels.adain_residual(*x32, two_pass=two,
+                                                               arith=arith)}[op]
+    off, on = calls(False), calls(True)
+    assert torch.equal(off[0], on[0]) and torch.equal(off[1], on[1])
+
+
+@pytest.mark.parametrize("stats", ["2pass", "1pass"])
+@pytest.mark.parametrize("op,relu", CLUSTER_OPS)
+@pytest.mark.parametrize("shape", ARITH_SHAPES)
+def test_bf16_arith_backward_matches_plain(card, shape, op, relu, stats):
+    """Rows 5-6 with `arith` on against the plain bf16-arithmetic backward
+    (`ops/norms.py::_bwd_lowp`, the mask from the forward kernel's y > 0):
+    within 2 % of each gradient's largest magnitude (phase 5's bf16
+    tolerance); a second run bit-equal; the recomputed ReLU mask agrees
+    with y > 0 at every element."""
+    args, y, st, g, run = _arith_case(op, relu, shape, stats, card, 9)
+    got, again = run(g), run(g)
+    torch.cuda.synchronize()
+    x = args[1] if op == "adain_residual" else args[0]
+    mask = y if relu else None
+    if op == "instance_norm":
+        want = (norms.instance_norm_bwd_plain(x, g, mask, stats, "bf16"),)
+    else:
+        scale = args[2] if op == "adain_residual" else args[1]
+        want = norms.adain_bwd_plain(x, scale, g, mask, stats, "bf16")
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        scale_ = float(w.abs().max())
+        err = float((a.float() - w.float()).abs().max())
+        assert torch.isfinite(a).all() and err <= 2e-2 * scale_ + 1e-6, (err, scale_)
+    if relu:
+        affine = args[1:3] if op == "adain" else ()
+        assert kernels.relu_mask_mismatches(args[0], y, st, *affine, arith=True) == 0

@@ -188,7 +188,14 @@ def test_bf16_compute_runs_and_stays_close():
 
 
 def test_norm_compute_bf16_is_rejected():
+    """`norm_compute: bf16` is ported: it builds, every in / adain block
+    normalising in bf16 (`tests/test_torch_norm_compute.py` holds it
+    against JAX); a value outside the schema is still rejected."""
     cfg = load_config(CONFIG)
     cfg.norm_compute = "bf16"
-    with pytest.raises(NotImplementedError, match="norm_compute"):
+    gen = build_generator(cfg, 102, device="cpu")
+    arith = {m.arith for m in gen.modules() if hasattr(m, "arith")}
+    assert arith == {"bf16"}
+    cfg.norm_compute = "fp16"
+    with pytest.raises(ValueError, match="arith"):
         build_generator(cfg, 102, device="cpu")

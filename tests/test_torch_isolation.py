@@ -75,6 +75,15 @@ LEGACY_MODULES = ("ops/prng.py", "models/legacy.py", "utils/interp.py",
                   "data/labels.py", "losses/gmm.py", "losses/gan.py")
 
 
+# and those of data-parallel training
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "device.py")
+
+
+def test_the_scans_cover_the_parallel_modules():
+    scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert set(PARALLEL_MODULES) <= scanned
+
+
 def test_the_scans_cover_the_legacy_modules():
     scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
     assert set(LEGACY_MODULES) <= scanned

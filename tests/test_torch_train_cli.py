@@ -117,14 +117,14 @@ def test_help_names_what_is_still_missing(capsys):
     out = capsys.readouterr().out
     flat = "".join(out.split())          # argparse wraps at spaces and hyphens
     assert "Notportedyet" in flat
-    for missing in ("data-parallel", "legacyv1"):
-        assert missing in flat.split("Notportedyet")[1]
-    assert "evaluation" not in flat.split("Notportedyet")[1]   # cli/evaluate.py
+    ported, missing = flat.split("Notportedyet")
+    assert "tensorparallelism" in missing and "--mesh_model" in missing
+    assert "dataparallel" in ported and "torch.distributed.run" in ported
+    assert "evaluation" not in missing   # cli/evaluate.py
     assert "dwcgan_tpu_torch.cli.evaluate" in flat
     for flag in ("--procedural_data", "--resume", "--output_path", "--profile_dir",
-                 "--use_pretrained_embed"):
+                 "--use_pretrained_embed", "--mesh_model"):
         assert flag in out
-    assert "--mesh_model" not in out
 
 
 def test_two_same_seed_runs_log_the_same_rows(tmp_path):
