@@ -127,7 +127,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    rtol 1e-3) and as phase 7 (bf16, batch 16: phase 7's exact launches,
    the PReLU slopes and spectral-norm kernels moved, 12 timed steps beside
    phase 7's median, and the spectral norm's calls per step with their
-   eager and device ms); the discriminator with `dis.norm: bn` at
+   eager and device ms); the penalties through a discriminator with a
+   norm, as phase 6 (`dis.norm: in` with `gp_w 10`, `dis.norm: ln` with R1
+   every step: the backward kernels' gradients differentiated again
+   through the plain backward, a nonzero penalty on the card); the
+   discriminator with `dis.norm: bn` at
    flagship width, fp32 card vs CPU on [16, 128, 128, 3] (each scale's
    outputs within 2e-3 of their largest); `AdaINGenV1` (dim 64, 2
    downsamples, 4 resblocks, mlp 256, style 8, LSTM 300 x 2) and `VAEGen`
@@ -168,6 +172,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    bf16` (phase 7's launches, every one of rows 1-3 and 5-6 in the bf16
    arithmetic, 12 steps beside phase 7's median) and serving at batch 32
    (11 / 4 / 4 / 2, images/s beside phase 4's).
+17. tensor parallel (`parallel/rules.py`, `parallel/tensor.py`): gloo
+   ranks on the one card (`chip_smoke.py --tp-worker RANK WORLD TMP`,
+   `file://` rendezvous; every collective staged through host memory),
+   all started together while this process runs the one-process
+   references: (a) the 1 x 2 mesh, flagship fp32 (TF32 off), global batch
+   4, 2 steps with `state.rng`'s draws and dropout, against one process
+   (run twice, its own spread logged): step 1's metrics within
+   `tests/test_tp_parity.py`'s rtol 2e-4 / atol 1e-5, step 2's too but
+   for the gradient norms (phase 15's 1e-3), the gathered parameters
+   within its rtol 2e-4 plus atol 2.5e-4 a step, `state.rng`, the
+   replicated parameters and EMA copies bit-equal on both ranks, 46
+   shards each; (b) the same two ranks, flagship bf16 at global batch 16:
+   exactly phase 7's launches on each rank, finite losses, 25,446,414
+   parameter elements held (34,341,710 less half of the 17,790,592
+   sharded), the collectives of one step (calls, bytes), then, once the
+   other processes have left the card, the peak memory and 12 steps
+   (CUDA events) beside phase 7's; (c) the 2 x 2 mesh (four ranks), fp32,
+   1 step, held to (a)'s bounds.  NCCL with two ranks needs two cards:
+   not run, and said so.  Prints its seconds.
 
 The last lines are the `kernels` JSON (nine kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
@@ -180,7 +203,9 @@ kernels (rows 1-7, each one cluster kernel per call) with `kernels_per_call`
 the stem entries carry phase 8's HMMA counts of the kernels they run as
 `hmma`; rows 1-7 carry phase 14's launches per block-options step as
 `launches_block_options`, rows 1-4 per legacy batch as `launches_legacy`,
-and phase 15's per step of the NCCL data axis as `launches_data_parallel`;
+phase 15's per step of the NCCL data axis as `launches_data_parallel`
+and phase 17 (b)'s per step on each tensor-parallel rank as
+`launches_tensor_parallel`;
 rows 1-3 and 5-6 carry phase 16's `norm_compute_bf16`: the bf16
 arithmetic's ms per batch / step beside the same sites' `arith`-off ms
 of this run, its largest error and its launches),
@@ -235,6 +260,7 @@ from dwcgan_tpu_torch.models.generator import build_generator
 from dwcgan_tpu_torch.models.legacy import build_legacy_generator
 from dwcgan_tpu_torch.ops import blocks, norms, stem
 from dwcgan_tpu_torch.ops.cuda import build, kernels
+from dwcgan_tpu_torch.parallel import rules, tensor
 from dwcgan_tpu_torch.parallel.mesh import DataAxis
 from dwcgan_tpu_torch.text.synthesis import TextSynthesizer
 from dwcgan_tpu_torch.text.vocab import Vocab, encode_commands
@@ -1300,21 +1326,33 @@ def _draws(cfg, n, seed):
     g = torch.Generator().manual_seed(seed)
     shape = (n, cfg.gen.num_cls, cfg.c_dim)
     return {"style1": torch.randn(shape, generator=g),
-            "style2": torch.randn(shape, generator=g)}
+            "style2": torch.randn(shape, generator=g),
+            "gp_alpha": torch.rand((n, 1, 1, 1), generator=g)}
 
 
-def phase_step_fp32(stem=False, options=False):
+# phase 14: the penalties through a discriminator with a norm (ROADMAP
+# F10): the instance norm's and the LayerNorm's second-order rule
+PENALTIES = ({"norm": "in", "gp_w": 10.0}, {"norm": "ln", "use_r1": True})
+
+
+def phase_step_fp32(stem=False, options=False, penalty=None):
     """One fp32 step on the card against the same step on the CPU.  Both
     trainers draw their weights from the same seed on the CPU's generator,
-    so they start identical; dropout is off and the style draws are given.
-    `stem`: the config's `stem_pallas` on (phase 10); `options`: the block
-    options of phase 14 (`block_options`)."""
+    so they start identical; dropout is off and the style draws (and GP's
+    mixing weights) are given.  `stem`: the config's `stem_pallas` on
+    (phase 10); `options`: the block options of phase 14
+    (`block_options`); `penalty`: `dis.norm` and GP or R1 (every step), one
+    of PENALTIES (phase 14)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(str(CONFIG))
     cfg.compute_dtype, cfg.batch_size, cfg.stem_pallas = "float32", 2, stem
     if options:
         block_options(cfg)
+    if penalty:
+        cfg.dis.norm = penalty["norm"]
+        cfg.gp_w = penalty.get("gp_w", 0.0)
+        cfg.use_r1, cfg.d_reg_every = penalty.get("use_r1", False), 1
     results, secs = [], []
     for dev in ("cpu", "cuda"):
         state, _, _ = build_trainer(cfg, dev, seed=SEED)
@@ -1329,11 +1367,13 @@ def phase_step_fp32(stem=False, options=False):
         secs.append(time.perf_counter() - t0)
     torch.backends.cudnn.allow_tf32 = True
     cpu, gpu = results
+    if penalty and not gpu["loss_gp" if cfg.gp_w else "loss_r1"] > 0:
+        raise AssertionError(f"penalty {penalty}: no penalty on the card: {gpu}")
     worst = max(abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu)
     bad = {k: (cpu[k], gpu[k]) for k in cpu
            if abs(gpu[k] - cpu[k]) > STEP_RTOL * abs(cpu[k]) + 1e-6}
-    log(f"step_fp32: stem_pallas {stem}, block options {options}, flagship "
-        f"width, batch 2, VGG on, "
+    log(f"step_fp32: stem_pallas {stem}, block options {options}, penalty "
+        f"{penalty}, flagship width, batch 2, VGG on, "
         f"every metric card vs CPU: "
         f"worst relative diff {worst:.3e} (rtol {STEP_RTOL}); CPU step "
         f"{secs[0]:.1f} s, card step (first, cold) {secs[1]:.1f} s; metrics "
@@ -2203,11 +2243,13 @@ def phase_block_options(vocab, card, train_off) -> dict:
     log("norelu_check: rows 1-2 forward and 5-6 backward with relu=False at "
         f"every flagship ReLU site: {json.dumps(norelu)}")
     step_worst = phase_step_fp32(options=True)
+    penalty_worst = [phase_step_fp32(penalty=p) for p in PENALTIES]
     launches, timing = phase_train_bf16(card, options=True)
     dis_bn = phase_dis_bn()
     legacy = phase_legacy(vocab, card)
     wall = time.perf_counter() - t0
-    result = dict(norelu=norelu, step_fp32_worst=step_worst, launches=launches,
+    result = dict(norelu=norelu, step_fp32_worst=step_worst,
+                  penalty_step_fp32_worst=penalty_worst, launches=launches,
                   step=timing, phase7_median_ms=train_off["median_ms"],
                   dis_bn_worst=dis_bn, legacy=legacy, wall_s=wall)
     log("block_options: " + json.dumps(result) + f"; card {card}")
@@ -2782,6 +2824,256 @@ def arith_summary(rows, name, flagship_stats):
                 max_rel_err=max(r["bwd_max_rel_err"] for r in rows if r.get("bwd") in counters))
 
 
+# ---------------------------------------------------------------- phase 17
+
+TP_MODEL = 2              # the model axis of every mesh below
+TP_GLOBAL = DP_GLOBAL     # (a), (c): the fp32 global batch
+TP_STEPS = 2              # (a)
+TP_BOTH = 4               # (c): gloo ranks of the 2 x 2 mesh
+TP_RTOL, TP_ATOL = 2e-4, 1e-5                  # tests/test_tp_parity.py's metrics
+TP_PARAM_RTOL, TP_PARAM_ATOL = 2e-4, 2.5e-4    # and its parameters, a step
+TP_WARMUP = 3             # (b): steps before the launch check and the timing
+FLAGSHIP_ELEMS = 20_356_044 + 13_985_666       # G (bias_hh's zeros included), D
+FLAGSHIP_SHARDED = 17_790_592                  # the 46 tensors of parallel/rules.py
+TP_RANK_ELEMS = FLAGSHIP_ELEMS - FLAGSHIP_SHARDED // TP_MODEL
+
+
+def tp_config(model, dtype="float32", batch=TP_GLOBAL):
+    cfg = load_config(str(CONFIG))
+    cfg.compute_dtype, cfg.batch_size, cfg.mesh_model = dtype, batch, model
+    return cfg
+
+
+def tp_rows(axis, batches):
+    """This rank's rows of each global batch (every rank of a model group
+    takes the same)."""
+    n, o = axis.local_batch, axis.data_rank * axis.local_batch
+    return [type(b)(*(t[o:o + n] for t in b)) for b in batches]
+
+
+def tp_fp32_run(model: int, steps: int) -> dict:
+    """`steps` fp32 steps (TF32 off) of the flagship on this rank's rows of
+    the global batch of TP_GLOBAL, draws from `state.rng`, dropout on; in
+    one process (no group) the whole batch.  Per step its metrics and the
+    full parameters on the host (gathered over the model group); at the
+    end this rank's replicated parameters and EMA copies and `state.rng`."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tp_config(model)
+    axis = DataAxis.from_config(cfg)
+    dev = torch.device("cuda")
+    state, step, _ = build_trainer(cfg, dev, seed=SEED, axis=axis)
+    batches = synthetic_batches(cfg, dev, n=steps, seed=SEED + 40)
+    if axis.grouped:
+        batches = tp_rows(axis, batches)
+    metrics, params = [], []
+    for b in batches:
+        metrics.append({k: float(v) for k, v in step(state, b).items()})
+        params.append({f"{net}.{k}": v.detach().to("cpu", copy=True)
+                       for net in ("gen", "dis")
+                       for k, v in rules.full_state_dict(getattr(state, net)).items()})
+    replicated = {f"{net}.{k}": v.detach().to("cpu", copy=True)
+                  for net in ("gen", "dis", "ema_gen", "ema_dis")
+                  for k, v in getattr(state, net).state_dict().items()
+                  if k not in rules.shards(getattr(state, net))}
+    return dict(metrics=metrics, params=params, replicated=replicated,
+                rng=state.rng.get_state(),
+                shards=len(rules.shards(state.gen)) + len(rules.shards(state.dis)))
+
+
+def tp_bf16_run(card_quiet: Path) -> dict:
+    """Phase 17 (b) on this rank: the flagship bf16 step at global batch 16
+    on the 1 x 2 mesh; phase 7's launches, the elements held, the
+    collectives of one step, then (once `card_quiet` exists: the other
+    phases' processes have left the card) the peak memory and 12 timed
+    steps."""
+    cfg = tp_config(TP_MODEL, "bfloat16", TRAIN_BATCH)
+    axis = DataAxis.from_config(cfg)
+    dev = torch.device("cuda")
+    state, step, _ = build_trainer(cfg, dev, seed=SEED, axis=axis)
+    batches = tp_rows(axis, synthetic_batches(cfg, dev, seed=SEED + 9))
+    held = sum(p.numel() for net in (state.gen, state.dis) for p in net.parameters())
+    for i in range(TP_WARMUP):
+        step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    reset_launches()
+    tensor.reset_collectives()
+    m = step(state, batches[TP_WARMUP % len(batches)])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    collectives = copy.deepcopy(tensor.COLLECTIVES)
+    metrics = {k: float(v) for k, v in m.items()}
+    deadline = time.perf_counter() + DP_TIMEOUT
+    while not card_quiet.exists():
+        if time.perf_counter() > deadline:
+            raise AssertionError("the other phase 17 processes did not finish")
+        time.sleep(0.2)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batches[i % len(batches)])
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return dict(launches=launches, metrics=metrics, held=held, collectives=collectives,
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20, times=times)
+
+
+def tp_worker(rank: int, world: int, tmp: str) -> int:
+    """One gloo rank of phase 17 on the one card, run as `chip_smoke.py
+    --tp-worker RANK WORLD TMP` by `phase_tensor_parallel`: on the 1 x 2
+    mesh (a) then (b), on the 2 x 2 mesh (c)."""
+    if not torch.cuda.is_available():
+        return 1
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store{world}", rank=rank,
+                            world_size=world)
+    try:
+        if world == TP_MODEL:
+            out = dict(a=tp_fp32_run(TP_MODEL, TP_STEPS), b=tp_bf16_run(Path(tmp) / "quiet"))
+        else:
+            out = dict(c=tp_fp32_run(TP_MODEL, 1))
+        torch.save(out, Path(tmp) / f"tp{world}_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_check(label, ranks, want, again, model):
+    """Each rank's steps against one process (`want`; `again`: the same
+    process run again, the card's own spread): step 1 every metric within
+    TP_RTOL / TP_ATOL, later steps too but for the gradient norms
+    (phase 15's DP_LATER_NORM_RTOL: Adam's first step moved the
+    rounding-noise parameters apart), the gathered parameters within
+    TP_PARAM_RTOL plus TP_PARAM_ATOL a step; `state.rng` and every
+    replicated parameter and EMA copy bit-equal on the ranks of a model
+    group.  Returns the worst relative differences per step, the ranks'
+    and the repeat's."""
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-6)
+    steps = len(ranks[0]["metrics"])
+    dev = [{k: max(rel(r["metrics"][i][k], w) for r in ranks) for k, w in want["metrics"][i].items()}
+           for i in range(steps)]
+    repeat = [{k: rel(again["metrics"][i][k], w) for k, w in want["metrics"][i].items()}
+              for i in range(steps)]
+    for i in range(steps):
+        for k, w in want["metrics"][i].items():
+            rtol = DP_LATER_NORM_RTOL if i and k in GRAD_NORMS else TP_RTOL
+            if dev[i][k] * max(abs(w), 1e-6) > rtol * abs(w) + TP_ATOL:
+                raise AssertionError(f"{label}: step {i + 1} {k} {dev[i][k]:.3e} relative "
+                                     f"from one process (rtol {rtol}; the process run "
+                                     f"again {repeat[i][k]:.3e})")
+    worst_p = 0.0
+    for r in ranks:
+        for i in range(steps):
+            for k, w in want["params"][i].items():
+                err = (r["params"][i][k] - w).abs()
+                worst_p = max(worst_p, float(err.max()))
+                if not bool((err <= TP_PARAM_RTOL * w.abs() + TP_PARAM_ATOL * (i + 1)).all()):
+                    raise AssertionError(f"{label}: step {i + 1} parameter {k}: max abs "
+                                         f"diff {float(err.max()):.3e}")
+    for r, mine in enumerate(ranks):
+        lead = ranks[r - r % model]
+        bad = [k for k, v in lead["replicated"].items()
+               if not torch.equal(v, mine["replicated"][k])]
+        if bad or not torch.equal(lead["rng"], mine["rng"]):
+            raise AssertionError(f"{label}: rank {r} differs from rank {r - r % model} "
+                                 f"of its model group: {bad[:8]}, rng "
+                                 f"{torch.equal(lead['rng'], mine['rng'])}")
+        if mine["shards"] != 46:
+            raise AssertionError(f"{label}: rank {r} holds {mine['shards']} shards, not 46")
+    worst = lambda rows: [max(row.items(), key=lambda kv: kv[1]) for row in rows]
+    return dict(worst_per_step=worst(dev), repeat_per_step=worst(repeat),
+                worst_param_abs=worst_p)
+
+
+def phase_tensor_parallel(card, train_off) -> dict:
+    """Phase 17: tensor parallelism (module docstring)."""
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ranks = [(w, r) for w in (TP_MODEL, TP_BOTH) for r in range(w)]
+        logs = [Path(tmp) / f"log{w}_{r}" for w, r in ranks]
+        files = [open(path, "w") for path in logs]
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--tp-worker", str(r), str(w), tmp], cwd=ROOT,
+                                  stdout=f, stderr=subprocess.STDOUT)
+                 for (w, r), f in zip(ranks, files)]
+        try:
+            # the one process, twice (the card's own spread), while the ranks start
+            want = tp_fp32_run(1, TP_STEPS)
+            again = tp_fp32_run(1, TP_STEPS)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = False
+            for p in procs[TP_MODEL:]:
+                p.wait(timeout=DP_TIMEOUT)
+            (Path(tmp) / "quiet").touch()
+            for p in procs[:TP_MODEL]:
+                p.wait(timeout=DP_TIMEOUT)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in files:
+                f.close()
+        for p, path in zip(procs, logs):
+            if p.returncode:
+                raise AssertionError(f"{' '.join(p.args)} failed ({p.returncode}):\n"
+                                     f"{path.read_text()[-3000:]}")
+        pair = [torch.load(Path(tmp) / f"tp{TP_MODEL}_rank{r}.pt") for r in range(TP_MODEL)]
+        both = [torch.load(Path(tmp) / f"tp{TP_BOTH}_rank{r}.pt") for r in range(TP_BOTH)]
+    a = tp_check("tp (a) 1x2", [r["a"] for r in pair], want, again, TP_MODEL)
+    first = lambda run: dict(run, metrics=run["metrics"][:1], params=run["params"][:1])
+    c = tp_check("tp (c) 2x2", [r["c"] for r in both], first(want), first(again), TP_MODEL)
+    b = [r["b"] for r in pair]
+    for r, run in enumerate(b):
+        if run["launches"] != EXPECTED_TRAIN_LAUNCHES:
+            raise AssertionError(f"tp (b) rank {r}: launches {run['launches']} != "
+                                 f"{EXPECTED_TRAIN_LAUNCHES}")
+        if not all(math.isfinite(v) for v in run["metrics"].values()):
+            raise AssertionError(f"tp (b) rank {r}: non-finite metrics {run['metrics']}")
+        if run["held"] != TP_RANK_ELEMS:
+            raise AssertionError(f"tp (b) rank {r} holds {run['held']} parameter "
+                                 f"elements, not {TP_RANK_ELEMS}")
+    med = lambda v: sorted(v)[len(v) // 2]
+    secs = time.perf_counter() - t0
+    result = dict(
+        a=a, c=c, seconds=secs,
+        b=[dict(launches=run["launches"], held=run["held"], collectives=run["collectives"],
+                peak_mib=run["peak_mib"], step_ms=med(run["times"]),
+                step_ms_min=min(run["times"]), step_ms_max=max(run["times"]))
+           for run in b],
+        phase7_peak_mib=train_off["peak_mib"], phase7_step_ms=train_off["median_ms"])
+    log(f"tp_fp32: (a) mesh 1x2 ({TP_MODEL} gloo ranks on cuda:0), flagship fp32 (TF32 "
+        f"off), global batch {TP_GLOBAL}, {TP_STEPS} steps with state.rng's draws and "
+        f"dropout against one process: worst relative metric difference per step "
+        f"{a['worst_per_step']} (the one process run again {a['repeat_per_step']}), "
+        f"gathered parameters max abs diff {a['worst_param_abs']:.3e} (rtol "
+        f"{TP_PARAM_RTOL} + atol {TP_PARAM_ATOL} a step), state.rng and the replicated "
+        f"parameters and EMA copies bit-equal on both ranks, 46 shards each; (c) mesh "
+        f"2x2 ({TP_BOTH} gloo ranks), 1 step: {c['worst_per_step']} (again "
+        f"{c['repeat_per_step']}), parameters {c['worst_param_abs']:.3e}; card {card}")
+    for r, run in enumerate(result["b"]):
+        log(f"tp_bf16: (b) rank {r} of the 1x2 mesh, flagship bf16, global batch "
+            f"{TRAIN_BATCH}: launches per step {run['launches']} (phase 7's); parameter "
+            f"elements held {run['held']} of {FLAGSHIP_ELEMS} ({FLAGSHIP_SHARDED} "
+            f"sharded in halves); collectives per step (calls, bytes this rank sends) "
+            + json.dumps(run["collectives"])
+            + f"; peak memory {run['peak_mib']:.0f} MiB (one process, phase 7: "
+            f"{train_off['peak_mib']:.0f} MiB); {TIMED_STEPS} steps after "
+            f"{TP_WARMUP + 1}, CUDA events, over gloo staged through host memory (the "
+            f"transport of two ranks on one card, not NCCL's): median "
+            f"{run['step_ms']:.3f} ms (min {run['step_ms_min']:.3f}, max "
+            f"{run['step_ms_max']:.3f}; phase 7's one process {train_off['median_ms']:.3f}); "
+            f"card {card}")
+    log(f"tensor_parallel: NCCL tensor parallelism was not run: NCCL refuses two ranks "
+        f"on one card (duplicate GPU) and this machine has {torch.cuda.device_count()} "
+        f"card(s); phase 17 took {secs:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2812,6 +3104,7 @@ def main() -> int:
     options = phase_block_options(vocab, card, train_off)
     data_parallel = phase_data_parallel(card, train_off)
     arith = phase_norm_compute(vocab, card, serve_off, train_off)
+    tensor_parallel = phase_tensor_parallel(card, train_off)
     log("stem_on_vs_off (phases 9-10 against 4 and 7 of this run): serving "
         + json.dumps({"on": serve_on, "off": serve_off}) + "; training "
         + json.dumps({"on": train_on, "off": train_off}))
@@ -2868,6 +3161,8 @@ def main() -> int:
         # norm_compute bf16 per step and per served batch with the bf16
         # arithmetic's times
         extra["launches_data_parallel"] = data_parallel["nccl"]["launches"][name]
+        extra["launches_tensor_parallel"] = [r["launches"][name]
+                                             for r in tensor_parallel["b"]]
         if name in ARITH_ROWS:
             extra["norm_compute_bf16"] = dict(
                 arith_summary(arith["rows"], name, cfg.norm_stats),
@@ -2893,6 +3188,8 @@ def main() -> int:
              "launches_block_options": sum(options["launches"][c] for c in counters),
              "launches_data_parallel": sum(data_parallel["nccl"]["launches"][c]
                                            for c in counters),
+             "launches_tensor_parallel": [sum(r["launches"][c] for c in counters)
+                                          for r in tensor_parallel["b"]],
              "kernels_per_call": max(r["kernels_per_call"] for r in mine),
              "mask_mismatches": sum(r.get("mask_mismatches", 0) for r in mine),
              **({} if name == "layer_norm_ref_bwd" else {"norm_compute_bf16": dict(
@@ -2924,4 +3221,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-worker":   # phase 15 (b)
         sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--tp-worker":   # phase 17
+        sys.exit(tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

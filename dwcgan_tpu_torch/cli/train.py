@@ -4,6 +4,9 @@
         --procedural_data --output_path OUT [--resume 1] [--device cuda]
     python -m torch.distributed.run --nproc_per_node=N \
         -m dwcgan_tpu_torch.cli.train --config ... # data parallel, N cards
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m dwcgan_tpu_torch.cli.train --config ... --mesh_model M
+        # an N/M x M mesh: tensor parallel over M cards, data over N/M
 
 Builds the generator and discriminator of `--config` in train mode with
 random weights from the config's seed (the word embeddings from
@@ -33,17 +36,21 @@ as if never interrupted.  With `use_pretrain`, `gen_pretrain` (a port
 checkpoint) warm-starts the parameters.  FiniteGuard stops the run on
 non-finite losses; StallWatchdog reports a stalled loop.
 
-Data parallel (`parallel/mesh.py`): under `torch.distributed.run` every
-rank joins the process group (NCCL, one card a rank: `cuda:LOCAL_RANK`),
-`cfg.batch_size` is the global batch and each rank's `DataPipeline` feeds
-its share of every global batch; the step averages the gradients and the
-metrics, so FiniteGuard takes the same decision on every rank.  Only rank
-0 writes the config copy, the metric log, the sample grids,
-`index.html`, the snapshots (the others wait for each) and a profile;
-every rank steps.  `mesh_data` comes from the config (-1: every rank);
-`--mesh_model` overrides `mesh_model`, whose values above 1 (tensor
-parallelism) are not ported and raise.  FID/IS evaluation is
-`cli/evaluate.py`.
+Data and tensor parallel (`parallel/mesh.py`): under
+`torch.distributed.run` every rank joins the process group (NCCL, one card
+a rank: `cuda:LOCAL_RANK`) and takes its place on the `mesh_data x
+mesh_model` mesh (`mesh_data` -1: the world size over `mesh_model`;
+`--mesh_model` overrides the config's).  `cfg.batch_size` is the global
+batch; each rank's `DataPipeline` feeds its data index's share of every
+global batch, the same rows to every rank of a model group.  The ranks of a
+model group hold their shards of the tensor-parallel layers
+(`parallel/rules.py`); the step averages the gradients and the metrics over
+the data axis, so FiniteGuard and the final snapshot take the same
+decision on every rank.  Only rank 0 writes the config copy, the metric
+log, the sample grids, `index.html`, the snapshots and a profile; every
+rank steps and takes part in each snapshot (the shards are gathered), and
+every rank of rank 0's model group runs the EMA generator for a grid.
+FID/IS evaluation is `cli/evaluate.py`.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from dwcgan_tpu_torch.models.vgg import (Vgg16Features, init_random_vgg,
                                          load_vgg_npz, make_vgg_loss_fn)
 from dwcgan_tpu_torch.parallel.mesh import (DataAxis, destroy,
                                             maybe_initialize_distributed)
+from dwcgan_tpu_torch.parallel.rules import full_numel
 from dwcgan_tpu_torch.text.vocab import Vocab
 from dwcgan_tpu_torch.train.checkpoint import (CheckpointManager,
                                                checkpoint_header, warm_start)
@@ -113,13 +121,13 @@ def build_trainer(cfg: Config, device="cuda", seed=None, embed_table=None,
     """(state, step_fn, vocab): everything one training iteration needs.
     `embed_table` ([vocab, embed_dim]) is the frozen word embedding;
     `output_path` is where the VGG16 weights are looked for when the
-    config names none (`build_vgg_loss`); `axis`: the data axis of a
-    data-parallel run."""
+    config names none (`build_vgg_loss`); `axis`: the mesh of a parallel
+    run (its model axis shards the state)."""
     dev = resolve_device(device)
     torch.manual_seed(cfg.seed if seed is None else seed)  # anything not given state.rng
     vocab = Vocab(cfg.dataset)
     state = create_train_state(cfg, vocab.size, device=dev, seed=seed,
-                               embed_table=embed_table)
+                               embed_table=embed_table, axis=axis)
     step_fn = make_train_step(cfg, state.gen, state.dis, state.gen_opt,
                               state.dis_opt,
                               vgg_loss_fn=build_vgg_loss(cfg, dev, output_path),
@@ -208,10 +216,9 @@ def display_batch(ds, n: int) -> Batch:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="DWC-GAN training (PyTorch/CUDA port): one card, or data "
-        "parallel over N cards under python -m torch.distributed.run "
-        "--nproc_per_node=N. FID/IS evaluation of its checkpoints: python -m "
-        "dwcgan_tpu_torch.cli.evaluate. Not ported yet: tensor parallelism "
-        "(--mesh_model above 1).")
+        "and tensor parallel over N cards under python -m torch.distributed.run "
+        "--nproc_per_node=N (--mesh_model M: an N/M x M mesh). FID/IS "
+        "evaluation of its checkpoints: python -m dwcgan_tpu_torch.cli.evaluate.")
     p.add_argument("--config", default="configs/celeba_faces.yaml")
     p.add_argument("--output_path", default=".")
     p.add_argument("--resume", type=int, default=0,
@@ -233,8 +240,8 @@ def parse_args(argv=None):
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of steps 10-20 here")
     p.add_argument("--mesh_model", type=int, default=None,
-                   help="override the tensor-parallel axis size (above 1: "
-                        "not ported yet)")
+                   help="override the tensor-parallel axis size (the ranks "
+                        "of one model group shard the widest layers)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -259,8 +266,10 @@ def _train(args, dev):
         cfg.mesh_model = args.mesh_model
     axis = DataAxis.from_config(cfg)
     lead = axis.rank == 0   # the rank that writes and prints
+    renders = axis.data_rank == 0   # rank 0's model group runs the grids
     if lead:
-        print(f"mesh: {dict(data=axis.world, model=1)} over {axis.world} devices")
+        print(f"mesh: {dict(data=axis.data, model=axis.model)} over {axis.world} "
+              "devices")
 
     vocab = Vocab(cfg.dataset)
     embed_table = None
@@ -272,8 +281,7 @@ def _train(args, dev):
             print(f"loaded pretrained embeddings for vocab of {vocab.size}")
     state, step_fn, _ = build_trainer(cfg, dev, embed_table=embed_table,
                                      output_path=args.output_path, axis=axis)
-    n_gen = sum(p.numel() for p in state.gen.parameters())
-    n_dis = sum(p.numel() for p in state.dis.parameters())
+    n_gen, n_dis = full_numel(state.gen), full_numel(state.dis)
     if lead:
         print(f"device {dev}; The number of parameters in G: {n_gen}")
         print(f"The number of parameters in D: {n_dis}")
@@ -302,21 +310,24 @@ def _train(args, dev):
     # one global batch per step, this rank's share of it: a resumed run
     # takes up the stream where it stopped
     pipe = DataPipeline(dataset, axis.local_batch, num_workers=cfg.num_workers,
-                        seed=cfg.seed, process_index=axis.rank,
-                        process_count=axis.world, start=state.step)
-    if lead:
+                        seed=cfg.seed, process_index=axis.data_rank,
+                        process_count=axis.data, start=state.step)
+    if renders:
         disp = to_device(display_batch(test_dataset, cfg.display_size), dev)
         disp_train = to_device(display_batch(dataset, cfg.display_size), dev)
 
     def render(tag, step_i, train=False):
-        if not lead:
+        # under a model axis the EMA generator's forward is a collective of
+        # the model group: all of rank 0's group runs it, rank 0 writes
+        if not renders:
             return
         att_on = cfg.gen.use_attention and step_i >= cfg.attention_warm_iter
         d = disp_train if train else disp
         g = torch.Generator(device=dev).manual_seed(step_i)
         rows = sample_fn(d.image, d.txt, d.txt_len, att_on, generator=g)
-        save_image_grid([r.cpu().numpy() for r in rows], cfg.display_size,
-                        os.path.join(img_dir, f"{tag}.jpg"))
+        if lead:
+            save_image_grid([r.cpu().numpy() for r in rows], cfg.display_size,
+                            os.path.join(img_dir, f"{tag}.jpg"))
 
     writer = MetricWriter(log_dir) if lead else None
     guard = FiniteGuard(every=cfg.guard_every or cfg.log_iter,

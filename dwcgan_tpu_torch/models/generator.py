@@ -40,6 +40,7 @@ from dwcgan_tpu_torch.ops.blocks import (AdaINResBlocks, Conv2dBlock, MLP,
                                          weights_init)
 from dwcgan_tpu_torch.ops.lstm import MaskedBiLSTM
 from dwcgan_tpu_torch.ops.resize import upsample2x
+from dwcgan_tpu_torch.parallel.tensor import module_group, reduce, split
 
 
 def build_embedding_matrix(vocab, embed_dim: int, pretrained=None,
@@ -64,9 +65,16 @@ def build_embedding_matrix(vocab, embed_dim: int, pretrained=None,
 
 def _fused_linear(x, linears):
     """The per-attribute Linear heads on one input, as one `linear` (one
-    flax `Dense` of num_cls * c_dim outputs in the JAX model)."""
-    return linear(x, torch.cat([m.weight for m in linears]),
-                  torch.cat([m.bias for m in linears]))
+    flax `Dense` of num_cls * c_dim outputs in the JAX model).  Under a
+    model axis the weights hold this rank's slice of the input features:
+    the product of that slice of `x`, all-reduced, then the bias."""
+    w = torch.cat([m.weight for m in linears])
+    b = torch.cat([m.bias for m in linears])
+    mg = module_group(linears[0])
+    if mg is None:
+        return linear(x, w, b)
+    y = reduce(linear(split(x, -1, mg), w), mg)
+    return y + b.to(y.dtype)
 
 
 class ContentEncoder(nn.Module):

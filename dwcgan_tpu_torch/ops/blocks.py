@@ -31,6 +31,8 @@ from dwcgan_tpu_torch.ops.norms import (EPS, adain, adain_residual,
                                         layer_norm_ref)
 from dwcgan_tpu_torch.ops.prng import jax_normal_key0
 from dwcgan_tpu_torch.parallel.mesh import draw
+from dwcgan_tpu_torch.parallel.tensor import (copy, gather, module_group,
+                                              module_shard, reduce, split)
 from dwcgan_tpu_torch.ops.stem import (stem_applicable, stem_conv7,
                                        stem_fits_vmem)
 
@@ -351,12 +353,20 @@ class Conv2dBlock(nn.Module):
         self.activation = make_activation(activ)
 
     def conv_raw(self, x: torch.Tensor) -> torch.Tensor:
-        """pad + conv in the activation dtype, channels_last out."""
+        """pad + conv in the activation dtype, channels_last out.  Under a
+        model axis (`conv.weight` this rank's output channels) the
+        channels are gathered, then the bias is added as `conv2d` adds it
+        below fp32."""
         x = channels_last(pad2d(x, self.padding, self.pad_type))
         w = self.conv.weight
         if self.norm_type == "sn":
             w = sn_conv_weight(w)
-        y = conv2d(x, w, self.conv.bias, stride=self.stride)
+        mg = module_group(self.conv)
+        if mg is None:
+            y = conv2d(x, w, self.conv.bias, stride=self.stride)
+        else:
+            y = gather(conv2d(copy(x, mg), w, stride=self.stride), 1, mg)
+            y = y + self.conv.bias.to(y.dtype)[:, None, None]
         return channels_last(y)
 
     def forward(self, x, adain_scale=None, adain_bias=None):
@@ -414,11 +424,38 @@ class LinearBlock(nn.Module):
             self.norm = BatchNormAffine(out_dim)
         self.activation = make_activation(activ, linear_block=True)
 
-    def forward(self, x):
+    @property
+    def emits_slice(self) -> bool:
+        """Column-parallel (`fc.weight` this rank's output features) with
+        no norm and a stateless activation: the output stays this rank's
+        slice of the features."""
+        s = module_shard(self.fc)
+        return s is not None and s.dim == 0 and self.norm_type == "none" \
+            and not isinstance(self.activation, PReLU)
+
+    def forward(self, x, part: bool = False):
+        """`part`: x is this rank's slice of the features (the output of a
+        column-parallel block that `emits_slice`).
+
+        Under a model axis, column-parallel (the output dim sharded): the
+        product of x with this rank's rows and its slice of the bias, then
+        gathered unless the block `emits_slice`; row-parallel (the input
+        dim sharded): the product of this rank's slice of x, all-reduced,
+        then the bias.  A norm mixes the features, and a PReLU's slope
+        would take a partial gradient: both run on gathered features."""
         w = self.fc.weight
         if self.norm_type == "sn":
             w = spectral_normalize(w.T).T
-        y = linear(x, w, self.fc.bias)
+        s = module_shard(self.fc)
+        if s is None:
+            y = linear(x, w, self.fc.bias)
+        elif s.dim == 0:
+            y = linear(copy(x, s.mg), w, split(self.fc.bias, 0, s.mg))
+            if not self.emits_slice:
+                y = gather(y, -1, s.mg)
+        else:
+            y = reduce(linear(x if part else split(x, -1, s.mg), w), s.mg)
+            y = y + self.fc.bias.to(y.dtype)
         if self.norm_type in ("ln", "bn"):
             y32 = y.float()
             if self.norm_type == "ln":
@@ -506,7 +543,13 @@ class MLP(nn.Module):
         self.model = nn.ModuleList(blocks)
 
     def forward(self, x):
+        """Under a model axis a column-parallel block hands its slice of
+        the features to the row-parallel block after it (the rules shard
+        the two together: JAX's one all-reduce at the AdaIN head,
+        dwcgan_tpu/parallel/mesh.py:37-39)."""
         x = x.reshape(x.shape[0], -1)
+        part = False
         for blk in self.model:
-            x = blk(x)
+            x = blk(x, part)
+            part = blk.emits_slice
         return x

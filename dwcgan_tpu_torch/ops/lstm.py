@@ -20,6 +20,12 @@ the host (on the card it is read back once otherwise).  Parameter names are
 `nn.LSTM`'s (`weight_ih_l0`, `weight_hh_l0_reverse`, ...), as in the
 reference model; the bias is `bias_ih + bias_hh` (the JAX LSTM has one).
 Inter-layer dropout draws its mask from the `rng` generator it is given.
+
+Under a model axis (`parallel/rules.py`) `weight_ih_l*` and `weight_hh_l*`
+hold this rank's slice of the 4H fused gates: the input projection is
+computed on the slice and gathered once a layer, `h @ w_hh` on the slice
+and gathered every step before the gate nonlinearities; the biases, `h`,
+`c` and the dropout masks are whole on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 from torch import nn
 
 from dwcgan_tpu_torch.ops.blocks import dropout, sigmoid
+from dwcgan_tpu_torch.parallel.tensor import copy, gather, module_group
 
 
 def reverse_padded(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -51,6 +58,12 @@ class MaskedBiLSTM(nn.LSTM):
                          bidirectional=True, batch_first=True,
                          dropout=dropout if num_layers > 1 else 0.0)
 
+    def flatten_parameters(self) -> None:
+        """Nothing: the recurrence is the loop below, never cuDNN's, so the
+        weights (this rank's gate slices under a model axis) are never
+        packed into cuDNN's buffer (`nn.LSTM` calls this on `to` and on a
+        deep copy)."""
+
     def _layer(self, x: torch.Tensor, lengths: torch.Tensor, layer: int,
                lmin: int):
         """One layer, both directions: (outputs [B, T, 2H], h, c [2, B, H]).
@@ -65,8 +78,24 @@ class MaskedBiLSTM(nn.LSTM):
         bias = [(getattr(self, f"bias_ih_l{layer}{s}")
                  + getattr(self, f"bias_hh_l{layer}{s}")).to(cd) for s in sfx]
         rev = reverse_padded(x, lengths)
-        proj = torch.stack([x @ w_ih[0].t() + bias[0],
-                            rev @ w_ih[1].t() + bias[1]])         # [2, B, T, 4H]
+        mg = module_group(self)
+        if mg is None:
+            proj = torch.stack([x @ w_ih[0].t() + bias[0],
+                                rev @ w_ih[1].t() + bias[1]])     # [2, B, T, 4H]
+        else:
+            # this rank's gates of both directions, gathered once
+            xs = copy(torch.stack([x, rev]), mg)
+            proj = gather(torch.stack([xs[0] @ w_ih[0].t(), xs[1] @ w_ih[1].t()]),
+                          -1, mg) + torch.stack(bias)[:, None, None]
+
+        def recur(h):
+            """h @ w_hh [2, B, 4H]; under a model axis this rank's gates,
+            gathered before the nonlinearities (the regather GSPMD puts in
+            the JAX scan, dwcgan_tpu/parallel/mesh.py:47-51)."""
+            if mg is None:
+                return torch.bmm(h, w_hh)
+            return gather(torch.bmm(copy(h, mg), w_hh), -1, mg)
+
         proj_t = proj.unbind(2)
         valid = (torch.arange(steps, device=x.device)[:, None]
                  < lengths[None, :])[:, None, :, None].unbind(0)  # T x [1, B, 1]
@@ -75,7 +104,7 @@ class MaskedBiLSTM(nn.LSTM):
         c = torch.zeros_like(h)
         outs = []
         for t in range(steps):
-            gates = proj_t[t] + torch.bmm(h, w_hh)
+            gates = proj_t[t] + recur(h)
             i, f, _, o = sigmoid(gates).chunk(4, -1)
             c_new = f * c + i * torch.tanh(gates[..., 2 * hid:3 * hid])
             h_new = o * torch.tanh(c_new)

@@ -14,9 +14,13 @@ Three versions of each op:
   plain forward and the plain backward, a CUDA tensor to the hand-written
   kernels (`ops/cuda/kernels.py`), which raise on what they cannot take.
   There is no fallback from a kernel to the plain version.  On the card the
-  backward reuses the forward's saved statistics.  The backward is itself
-  not differentiable (`once_differentiable`): a penalty that needs the
-  gradient of a gradient through one of these norms raises.
+  backward reuses the forward's saved statistics.  The instance norm's and
+  the LayerNorm's backward are differentiable once more (`_SecondOrder`:
+  the gradient penalty and R1 through a discriminator with a norm): the
+  gradient itself comes from the backward kernel on the card, its own
+  gradient from autograd through the plain backward, as XLA differentiates
+  the jnp norms twice.  AdaIN's and the residual form's, which only the
+  generator runs, are not (`once_differentiable`).
 
 Statistics are fp32 whatever the activation dtype, eps is 1e-5, and
 `stats` picks how the variance is formed (norms.py:84-93): "2pass" centres
@@ -342,6 +346,31 @@ def _grad_like(g: torch.Tensor, x: torch.Tensor, op: str) -> torch.Tensor:
     return out
 
 
+class _SecondOrder(torch.autograd.Function):
+    """A norm's backward as a differentiable function of its inputs, for a
+    gradient of a gradient (`create_graph`: the gradient penalty and R1
+    through a discriminator with a norm).  Forward: the norm's own backward
+    (`first`: the backward kernel on the card, the plain backward on the
+    CPU), in a tuple.  Backward: the VJP of the plain backward (`plain`,
+    torch ops), taken by autograd.  The kernels have no second-order rule,
+    as the JAX norms have none: XLA differentiates the jnp norms twice."""
+
+    @staticmethod
+    def forward(ctx, first, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return first(*inputs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ctx.plain(*inputs)
+        got = torch.autograd.grad(outs, inputs, grads, allow_unused=True)
+        return (None, None, *got)
+
+
 class _InstanceNorm(torch.autograd.Function):
 
     @staticmethod
@@ -357,16 +386,23 @@ class _InstanceNorm(torch.autograd.Function):
         return y
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         x, y, st = ctx.saved_tensors
-        if st is not None:
-            dx = kernels.instance_norm_bwd(x, _grad_like(g, x, "instance_norm"),
-                                           st, relu=ctx.relu,
-                                           arith=ctx.arith == "bf16")
-        else:
-            dx = instance_norm_bwd_plain(x, g, y, ctx.stats, ctx.arith)
-        return dx, None, None, None
+
+        def first(x, g):
+            if st is None:
+                return (instance_norm_bwd_plain(x, g, y, ctx.stats, ctx.arith),)
+            return (kernels.instance_norm_bwd(x, _grad_like(g, x, "instance_norm"), st,
+                                              relu=ctx.relu, arith=ctx.arith == "bf16"),)
+
+        if not torch.is_grad_enabled():
+            return first(x, g)[0], None, None, None
+        # a gradient of this gradient follows (`_SecondOrder`)
+        mask = y
+        if st is not None and ctx.relu:
+            mask = relu_mask_plain(x, stats=ctx.stats, arith=ctx.arith).to(x.dtype)
+        plain = lambda x, g: (instance_norm_bwd_plain(x, g, mask, ctx.stats, ctx.arith),)
+        return _SecondOrder.apply(first, plain, x, g)[0], None, None, None
 
 
 class _AdaIN(torch.autograd.Function):
@@ -438,15 +474,20 @@ class _LayerNormRef(torch.autograd.Function):
         return y
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         x, gamma, st = ctx.saved_tensors
-        if st is not None:
-            dx, dgamma, dbeta = kernels.layer_norm_ref_bwd(
-                x, _grad_like(g, x, "layer_norm_ref"), st, gamma)
-        else:
-            dx, dgamma, dbeta = layer_norm_ref_bwd_plain(x, gamma, g, ctx.stats)
-        return dx, dgamma, dbeta, None
+        plain = lambda x, g, gamma: layer_norm_ref_bwd_plain(x, gamma, g, ctx.stats)
+
+        def first(x, g, gamma):
+            if st is None:
+                return plain(x, g, gamma)
+            return kernels.layer_norm_ref_bwd(x, _grad_like(g, x, "layer_norm_ref"),
+                                              st, gamma)
+
+        if not torch.is_grad_enabled():
+            return (*first(x, g, gamma), None)
+        # a gradient of this gradient follows (`_SecondOrder`)
+        return (*_SecondOrder.apply(first, plain, x, g, gamma), None)
 
 
 def instance_norm(x, relu: bool = False, stats: str = "2pass",

@@ -1,4 +1,4 @@
-"""Data-parallel training (the counterpart of the data axis of
+"""Data- and tensor-parallel training (the counterpart of
 `dwcgan_tpu/parallel/mesh.py`).
 
 The JAX meaning, which the port keeps: `cfg.batch_size` is the *global*
@@ -21,27 +21,38 @@ Adam, `all_reduce_metrics` on the step's metrics), not
 `DistributedDataParallel`: the step runs the discriminator twice before
 one backward, runs G's adversarial head through D with D's parameters
 taking no gradient, and reads G's gradients for `grad_gen_norm` before
-Adam.  Parameters, Adam's moments and the EMA copies are replicated, and
-stay so.
+Adam.  Parameters, Adam's moments and the EMA copies are replicated over
+the data axis, and stay so.
+
+The model axis (tensor parallelism, `mesh_model > 1`, mesh.py:32-54):
+the N ranks form a `data x model` mesh, rank r at (r // model, r % model)
+as JAX's `reshape(data, model)` places devices (mesh.py:91).  The ranks of
+one model group (one data index) take the same rows and run one program
+on them: each holds its slice of the tensors the rules of
+`parallel/rules.py` shard, and the collectives of `parallel/tensor.py`
+join the slices inside the forward and backward.  A sharded parameter's
+gradient (the rank's slice) is averaged over the data group (one model
+index); a replicated one's, and the metrics, over the whole mesh, which
+gives every rank of a model group the same bits (`all_reduce_grads`).
+With `mesh_model` 1 no group is made and the data axis is the world, as
+before.
 
 Launch: `python -m torch.distributed.run --nproc_per_node=N -m
-dwcgan_tpu_torch.cli.train ...` (NCCL, one card a rank); in one process
-the data axis is rank 0 of 1 and nothing changes.  Tensor parallelism
-(`mesh_model > 1`, mesh.py:32-54) is not ported.
+dwcgan_tpu_torch.cli.train ... [--mesh_model M]` (NCCL, one card a rank);
+in one process the data axis is rank 0 of 1 and nothing changes.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from dwcgan_tpu_torch.device import resolve_device
-
-TP_NOT_PORTED = "tensor parallelism (mesh_model > 1) is not ported yet"
+from dwcgan_tpu_torch.parallel.tensor import ModelGroup, count_collective
 
 
 def maybe_initialize_distributed(device="cuda") -> torch.device:
@@ -97,55 +108,103 @@ def draw(fn, shape, generator=None, device=None, rows: Optional[Rows] = None):
 
 @dataclass(frozen=True)
 class DataAxis:
-    """The data axis of one run: this rank, the world size, the global and
-    the local batch.  Built by `from_config`; in one process rank 0 of 1.
-    `grouped`: a process group exists, so the collectives run (a group of
-    one rank included)."""
+    """The mesh of one run: this rank, the world size, the global batch and
+    the model axis's size; the data axis is `world // model`.  Built by
+    `from_config`; in one process rank 0 of 1.  `grouped`: a process group
+    exists, so the collectives run (a group of one rank included).
+    `data_group`: this rank's data group (None: the world, `model` 1);
+    `model_group`: its model group (None: `model` 1)."""
     rank: int
     world: int
     global_batch: int
     grouped: bool = False
+    model: int = 1
+    data_group: Any = field(default=None, compare=False, repr=False)
+    model_group: Optional[ModelGroup] = field(default=None, compare=False,
+                                              repr=False)
+
+    @property
+    def data(self) -> int:
+        return self.world // self.model
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
 
     @property
     def local_batch(self) -> int:
-        return self.global_batch // self.world
+        return self.global_batch // self.data
 
     @property
     def rows(self) -> Rows:
-        """This rank's rows of the global batch, or None in one process
-        without a group (every draw is the global one)."""
+        """This rank's rows of the global batch (the same on every rank of
+        a model group), or None in one process without a group (every draw
+        is the global one)."""
         if not self.grouped:
             return None
-        return Rows(self.global_batch, self.rank * self.local_batch,
+        return Rows(self.global_batch, self.data_rank * self.local_batch,
                     self.local_batch)
 
     @classmethod
     def from_config(cls, cfg) -> "DataAxis":
         """From the config (`check_mesh`) and the process group's rank and
-        size, or rank 0 of 1 without one."""
+        size, or rank 0 of 1 without one.  With `mesh_model` above 1 every
+        rank makes every data and model group (`mesh_groups`): every rank
+        calls this alike."""
         grouped = dist.is_available() and dist.is_initialized()
         rank = dist.get_rank() if grouped else 0
         world = dist.get_world_size() if grouped else 1
         check_mesh(cfg, world)
-        return cls(rank, world, cfg.batch_size, grouped)
+        model = cfg.mesh_model
+        if model == 1:
+            return cls(rank, world, cfg.batch_size, grouped)
+        data_group, model_group = mesh_groups(rank, world, model)
+        return cls(rank, world, cfg.batch_size, grouped, model, data_group,
+                   model_group)
+
+
+def mesh_groups(rank: int, world: int, model: int):
+    """(this rank's data group, its `ModelGroup`) on the `world // model x
+    model` mesh.  Every rank creates every group, in the same order (the
+    model groups by data index, then the data groups by model index)."""
+    data = world // model
+    by_data = [dist.new_group(list(range(d * model, (d + 1) * model)))
+               for d in range(data)]
+    by_model = [dist.new_group(list(range(j, world, model))) for j in range(model)]
+    return (by_model[rank % model],
+            ModelGroup(by_data[rank // model], rank % model, model))
 
 
 def check_mesh(cfg, world: int) -> int:
     """The data axis's size for `world` ranks: `cfg.mesh_data` (-1: the
-    world size; anything else must equal it), `cfg.mesh_model` (above 1
-    raises: tensor parallelism is not ported) and `cfg.batch_size` (the
-    global batch, divisible by the data axis), with JAX's messages
-    (dwcgan_tpu/parallel/mesh.py:86-88, dwcgan_tpu/cli/train.py:130-132)."""
+    world size over the model axis; anything else times `cfg.mesh_model`
+    must equal the world size) and `cfg.batch_size` (the global batch,
+    divisible by the data axis), with JAX's messages
+    (dwcgan_tpu/parallel/mesh.py:86-88, dwcgan_tpu/cli/train.py:130-132).
+    JAX would build a smaller mesh on the first devices; the port refuses
+    that, because every launched rank takes part in the collectives."""
     model = cfg.mesh_model
-    if model > 1:
-        raise NotImplementedError(TP_NOT_PORTED)
-    data = world if cfg.mesh_data == -1 else cfg.mesh_data
+    if model < 1:
+        raise ValueError(f"mesh_model {model} must be at least 1")
+    if cfg.mesh_data == -1:
+        if world % model:
+            # JAX: `assert len(devices) % model == 0` (mesh.py:86), no message
+            raise ValueError(f"mesh_model {model} does not divide the {world} "
+                             "devices")
+        data = world // model
+    else:
+        data = cfg.mesh_data
     if data * model > world:
         raise ValueError(f"mesh {data}x{model} needs {data * model} devices, "
                          f"have {world}")
-    if data != world:
-        raise ValueError(f"mesh {data}x{model} over {world} devices: the data "
-                         "axis is every rank (mesh_data -1 or the world size)")
+    if data * model != world:
+        raise ValueError(f"mesh {data}x{model} over {world} devices: the mesh "
+                         "is every rank (mesh_data -1, or mesh_data x "
+                         "mesh_model the world size)")
     if cfg.batch_size % data:
         raise ValueError(
             f"batch_size {cfg.batch_size} must be divisible by the data mesh "
@@ -163,23 +222,40 @@ def _flat_grads(params):
     return torch.cat([p.grad.reshape(-1).float() for p in params])
 
 
-def all_reduce_grads(params, axis: Optional[DataAxis]) -> None:
-    """Average the gradients of `params` over the data axis: one fp32
-    buffer of them in parameter order, all-reduced with SUM, divided by
-    the world size, copied back.  Runs after a backward, before Adam.
-    Without a process group it does nothing (no copy, no collective); with
-    a group of any size, one rank included, it runs the collective."""
-    if axis is None or not axis.grouped:
+def _all_reduce_mean(params, group, size: int) -> None:
+    """Average the gradients of `params` over `group` (None: the world) of
+    `size` ranks: one fp32 buffer of them in parameter order, all-reduced
+    with SUM, divided by `size`, copied back."""
+    if not params:
         return
-    params = list(params)
     buf = _flat_grads(params)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
-    buf.div_(axis.world)
+    count_collective("all_reduce_grads", buf)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    buf.div_(size)
     offset = 0
     for p in params:
         n = p.grad.numel()
         p.grad.copy_(buf[offset:offset + n].view_as(p.grad))
         offset += n
+
+
+def all_reduce_grads(params, axis: Optional[DataAxis]) -> None:
+    """Average the gradients of `params` over the data axis.  Runs after a
+    backward, before Adam.  A replicated parameter's gradient is averaged
+    over every rank of the mesh: the ranks of a model group compute it
+    alike, but on the card a backward that adds with atomics (the reflect
+    pad's) can give them other last bits, and the mean over the whole mesh
+    gives every rank the same update.  A sharded parameter's slice
+    (`parallel/rules.py`) is averaged over the data group.  Without a
+    process group it does nothing (no copy, no collective); with a group
+    of any size, one rank included, it runs the collective."""
+    if axis is None or not axis.grouped:
+        return
+    params = list(params)
+    _all_reduce_mean([p for p in params if not hasattr(p, "tp_shard")], None,
+                     axis.world)
+    _all_reduce_mean([p for p in params if hasattr(p, "tp_shard")],
+                     axis.data_group, axis.data)
 
 
 # metrics that are not averaged: Python floats, and the gradient norms of
@@ -188,9 +264,10 @@ NOT_AVERAGED = ("grad_gen_norm", "grad_dis_norm")
 
 
 def all_reduce_metrics(metrics: Dict, axis: Optional[DataAxis]) -> Dict:
-    """The step's 0-d metric tensors averaged over the data axis in one
-    collective; Python floats (`lr`, `ds_w`) and the gradient norms stay
-    as they are.  Without a process group, `metrics` itself."""
+    """The step's 0-d metric tensors averaged over the mesh in one
+    collective (the ranks of a model group compute them alike), so every
+    rank holds the same; Python floats (`lr`, `ds_w`) and the gradient
+    norms stay as they are.  Without a process group, `metrics` itself."""
     if axis is None or not axis.grouped:
         return metrics
     keys = [k for k, v in metrics.items()
@@ -198,6 +275,7 @@ def all_reduce_metrics(metrics: Dict, axis: Optional[DataAxis]) -> Dict:
     if not keys:
         return metrics
     stacked = torch.stack([metrics[k].float() for k in keys])
+    count_collective("all_reduce_metrics", stacked)
     dist.all_reduce(stacked, op=dist.ReduceOp.SUM)
     stacked.div_(axis.world)
     return {**metrics, **{k: stacked[i] for i, k in enumerate(keys)}}

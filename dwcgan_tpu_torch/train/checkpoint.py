@@ -13,9 +13,13 @@ then renamed, so a crash never leaves a half-written file as the latest.
 
 Data parallel (`axis`): rank 0 writes and the other ranks wait at a
 barrier until the file is there; every rank restores from the same file.
-Every tensor of the state is replicated over the data axis, so the file
-holds the whole state and restores into any world size (the counterpart
-of `tests/test_cross_topology_ckpt.py`).
+Every tensor of the state is replicated over the data axis.  Under a model
+axis every rank gathers the full tensors of its shards (parameters, EMA
+copies, Adam's moments; `parallel/rules.py`) over its model group before
+rank 0 writes, and on restore each rank reads the full file and keeps its
+slices.  So the file always holds the whole state, in one format, and a
+snapshot of any mesh restores bit-equal into any other (the counterpart of
+`tests/test_cross_topology_ckpt.py`).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from typing import Dict, List, Optional
 import torch
 
 from dwcgan_tpu_torch.parallel.mesh import DataAxis, barrier
+from dwcgan_tpu_torch.parallel.rules import (full_optimizer_state, full_state_dict,
+                                             local_optimizer_state, local_state_dict)
 from dwcgan_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^ckpt_(\d{8,})\.pt$")
@@ -90,6 +96,20 @@ def _load_optimizer(opt: torch.optim.Optimizer, saved: Dict) -> None:
                 st["step"] = st["step"].cpu()
 
 
+def state_payload(state: TrainState, header: Dict) -> Dict:
+    """What a checkpoint file holds: the full tensors of every net and
+    optimizer (gathered over the model group where they are sharded: a
+    collective on every rank of it), the step and the generator state."""
+    return {
+        "header": header, "step": int(state.step),
+        **{name: full_state_dict(getattr(state, name))
+           for name in ("gen", "dis", "ema_gen", "ema_dis")},
+        "gen_opt": full_optimizer_state(state.gen_opt, state.gen),
+        "dis_opt": full_optimizer_state(state.dis_opt, state.dis),
+        "rng": state.rng.get_state(),
+    }
+
+
 class CheckpointManager:
     """Saves and restores the `TrainState` in `directory`, keeping the
     newest `max_to_keep` files; `axis`: the data axis of a data-parallel
@@ -110,26 +130,19 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, state: TrainState) -> str:
-        """Write the state at `state.step` (rank 0 of a data axis; the
-        others wait for it); returns the file's path."""
+        """Write the state at `state.step` (rank 0 of the mesh writes, every
+        rank takes part in gathering the shards, the others wait for the
+        file); returns the file's path."""
         final = self.path(state.step)
+        payload = state_payload(state, self.header)
         if self.axis is None or self.axis.rank == 0:
-            self._write(state, final)
+            self._write(payload, final)
         barrier(self.axis)
         return final
 
-    def _write(self, state: TrainState, final: str) -> None:
+    def _write(self, payload: Dict, final: str) -> None:
         os.makedirs(self.directory, exist_ok=True)
         tmp = final + ".tmp"
-        payload = {
-            "header": self.header, "step": int(state.step),
-            "gen": state.gen.state_dict(), "dis": state.dis.state_dict(),
-            "ema_gen": state.ema_gen.state_dict(),
-            "ema_dis": state.ema_dis.state_dict(),
-            "gen_opt": state.gen_opt.state_dict(),
-            "dis_opt": state.dis_opt.state_dict(),
-            "rng": state.rng.get_state(),
-        }
         with open(tmp, "wb") as f:
             torch.save(payload, f)
             f.flush()
@@ -146,9 +159,11 @@ class CheckpointManager:
         ckpt = read_checkpoint(checkpoint_file(self.directory, step),
                                map_location=dev, header=self.header)
         for name in ("gen", "dis", "ema_gen", "ema_dis"):
-            getattr(template, name).load_state_dict(ckpt[name])
-        _load_optimizer(template.gen_opt, ckpt["gen_opt"])
-        _load_optimizer(template.dis_opt, ckpt["dis_opt"])
+            net = getattr(template, name)
+            net.load_state_dict(local_state_dict(net, ckpt[name]))
+        for name, net in (("gen_opt", template.gen), ("dis_opt", template.dis)):
+            opt = getattr(template, name)
+            _load_optimizer(opt, local_optimizer_state(opt, net, ckpt[name]))
         template.step = ckpt["step"]
         template.rng.set_state(ckpt["rng"].cpu())
         return template
@@ -166,6 +181,7 @@ def warm_start(state: TrainState, pretrain: str,
     donor = read_checkpoint(checkpoint_file(pretrain), map_location=dev)
     with torch.no_grad():
         for module, saved in ((state.gen, donor["gen"]), (state.dis, donor["dis"])):
+            saved = local_state_dict(module, saved)
             for name, p in module.named_parameters():
                 new = saved.get(name)
                 if any(s in name for s in skip_substrings) or new is None \

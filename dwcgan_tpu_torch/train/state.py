@@ -27,6 +27,7 @@ from torch import nn
 from dwcgan_tpu_torch.config import Config
 from dwcgan_tpu_torch.models.discriminator import MsImageDis, build_discriminator
 from dwcgan_tpu_torch.models.generator import Generator, build_generator
+from dwcgan_tpu_torch.parallel.rules import shard_
 
 EMA_DECAY = 0.999
 
@@ -78,15 +79,24 @@ def ema_update(ema: nn.Module, module: nn.Module, decay: float = EMA_DECAY):
 
 def create_train_state(cfg: Config, vocab_size: int, device="cuda",
                        seed: Optional[int] = None,
-                       embed_table: Optional[np.ndarray] = None) -> TrainState:
+                       embed_table: Optional[np.ndarray] = None,
+                       axis=None) -> TrainState:
     """Models in train mode with random weights from `seed` (default
     `cfg.seed`), their EMA copies, both optimizers, step 0 and the step's
-    generator, on `device` (the card unless the caller asks for the CPU)."""
+    generator, on `device` (the card unless the caller asks for the CPU).
+    With a model axis (`axis.model_group`, `parallel/mesh.py`) the models
+    are built whole and then keep this rank's shards
+    (`parallel/rules.py::shard_`), before the optimizers and the EMA
+    copies are made, so moments and EMA copies are shards too (JAX's
+    `place_state`, dwcgan_tpu/parallel/mesh.py:151-176)."""
     seed = cfg.seed if seed is None else seed
     gen = build_generator(cfg, vocab_size, device=device, seed=seed,
                           train=True, embed_table=embed_table)
     dis = build_discriminator(cfg, device=device, seed=seed + 1)
     dis.train()
+    mg = axis.model_group if axis is not None else None
+    shard_(gen, mg)
+    shard_(dis, mg)
     dev = next(gen.parameters()).device
     return TrainState(
         gen=gen, dis=dis, ema_gen=make_ema(gen), ema_dis=make_ema(dis),

@@ -42,6 +42,14 @@ are averaged (`all_reduce_metrics`).  Every loss term is a mean over the
 batch's rows (`parallel/mesh.py`), so the ranks together take the step of
 one process on the global batch.  EMA needs nothing: replicated weights
 stay replicated.
+
+Tensor parallel (the model axis of `axis`): the nets hold their shards
+(`parallel/rules.py::shard_`) and their sharded layers issue the model
+group's collectives in the forward and the backward; every rank of a
+model group draws the same random numbers from the same rows, so
+`state.rng` stays equal on them.  The gradient norms count a replicated
+parameter once and sum the shards' squares over the model group
+(`_global_norm`); Adam and EMA are elementwise and run on the shards.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from dwcgan_tpu_torch.losses.gan import (dis_loss, diversity_loss, gen_adv_loss,
 from dwcgan_tpu_torch.losses.gmm import gmm_emd, gmm_kl
 from dwcgan_tpu_torch.parallel.mesh import (DataAxis, all_reduce_grads,
                                             all_reduce_metrics, draw)
+from dwcgan_tpu_torch.parallel.tensor import all_reduce_sum
 from dwcgan_tpu_torch.train.sampling import blend_attention, sample_style
 from dwcgan_tpu_torch.train.schedules import lr_schedule
 from dwcgan_tpu_torch.train.state import TrainState, ema_update
@@ -76,8 +85,20 @@ def _split_outs(outs, k):
 
 
 def _global_norm(params) -> torch.Tensor:
-    return torch.nn.utils.get_total_norm([p.grad for p in params
-                                          if p.grad is not None])
+    """The L2 norm of the gradients of `params`.  Under a model axis a
+    replicated parameter counts once and the squared sum of the sharded
+    ones' slices (`tp_shard`) is all-reduced over the model group before
+    the root."""
+    grads = [p.grad for p in params if p.grad is not None]
+    sharded = [p for p in params if p.grad is not None and hasattr(p, "tp_shard")]
+    if not sharded:
+        return torch.nn.utils.get_total_norm(grads)
+    rep = torch.nn.utils.get_total_norm([p.grad for p in params if p.grad is not None
+                                         and not hasattr(p, "tp_shard")])
+    part = torch.nn.utils.get_total_norm([p.grad for p in sharded])
+    whole = all_reduce_sum(part.float().square(), sharded[0].tp_shard.mg,
+                           "all_reduce_norm")
+    return torch.sqrt(rep.float().square() + whole)
 
 
 def _apply(opt: torch.optim.Adam, lr: float) -> None:

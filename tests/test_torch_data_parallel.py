@@ -34,9 +34,12 @@ them has a 300 s timeout, so a hang fails the test.
    1, given an output path of its own, wrote nothing there; the checkpoint
    restores bit-equal into a one-process trainer, and equals both ranks'
    final states.
-5. `DataAxis` rejects `mesh_model > 1`, a `mesh_data` that is not the
-   world size, and a batch the data axis does not divide, with JAX's
-   messages where JAX has them.
+5. `DataAxis` takes the model axis into its mesh (`mesh_model` 2 over 4
+   ranks: a data axis of 2) and rejects a model axis that does not divide
+   the ranks, a mesh that is not every rank, and a batch the data axis
+   does not divide, with JAX's messages where JAX has them
+   (`tests/test_torch_tensor_parallel.py` holds every case against JAX's
+   `create_mesh`).
 """
 
 import json
@@ -337,15 +340,16 @@ def test_cli_on_two_ranks(tmp_path):
 
 
 def test_data_axis_rejects_what_jax_rejects():
-    from dwcgan_tpu_torch.parallel.mesh import TP_NOT_PORTED, DataAxis, check_mesh
+    from dwcgan_tpu_torch.parallel.mesh import DataAxis, check_mesh
     cfg = _cfg()
     axis = DataAxis.from_config(cfg)
     assert (axis.rank, axis.world, axis.local_batch, axis.rows) == (0, 1, GLOBAL, None)
+    assert (axis.model, axis.data, axis.data_rank, axis.model_rank) == (1, 1, 0, 0)
     assert check_mesh(cfg, 2) == 2 and check_mesh(cfg, 4) == 4
     cfg.mesh_model = 2
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    assert check_mesh(cfg, 2) == 1 and check_mesh(cfg, 4) == 2
+    with pytest.raises(ValueError, match="mesh_model 2 does not divide the 1 devices"):
         DataAxis.from_config(cfg)
-    assert "not ported" in TP_NOT_PORTED
     cfg.mesh_model, cfg.mesh_data = 1, 2
     with pytest.raises(ValueError, match=r"mesh 2x1 needs 2 devices, have 1"):
         DataAxis.from_config(cfg)

@@ -77,11 +77,24 @@ LEGACY_MODULES = ("ops/prng.py", "models/legacy.py", "utils/interp.py",
 
 # and those of data-parallel training
 PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "device.py")
+# and those of tensor parallelism
+TP_MODULES = ("parallel/rules.py", "parallel/tensor.py")
 
 
 def test_the_scans_cover_the_parallel_modules():
     scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
     assert set(PARALLEL_MODULES) <= scanned
+
+
+def test_the_scans_cover_the_tensor_parallel_modules():
+    scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert set(TP_MODULES) <= scanned
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, dwcgan_tpu_torch.parallel.rules, "
+         "dwcgan_tpu_torch.parallel.tensor; print(sorted(m for m in sys.modules "
+         f"if m.split('.')[0] in {set(FORBIDDEN)!r}))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
 
 
 def test_the_scans_cover_the_legacy_modules():

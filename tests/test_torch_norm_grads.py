@@ -138,8 +138,18 @@ def test_cpu_backward_launches_no_kernel(op, relu):
 
 
 def test_the_backward_is_differentiable_once():
-    x = _nchw(_inputs("instance_norm", 4)[0][0]).clone().requires_grad_()
-    (gx,) = torch.autograd.grad(norms.instance_norm(x).square().sum(), x,
+    """AdaIN's backward, which only the generator runs, is differentiable
+    once; the instance norm's is differentiable once more, for the
+    penalties through a discriminator with a norm (ROADMAP F10;
+    `tests/test_torch_norm_penalty.py` holds it against JAX)."""
+    x, scale, bias = (_nchw(a).clone().requires_grad_()
+                      for a in _inputs("adain", 4)[0])
+    (gx,) = torch.autograd.grad(norms.adain(x, scale, bias).square().sum(), x,
                                 create_graph=True)
     with pytest.raises(RuntimeError, match="once_differentiable|differentiable"):
         gx.sum().backward()
+    x = _nchw(_inputs("instance_norm", 4)[0][0]).clone().requires_grad_()
+    (gx,) = torch.autograd.grad(norms.instance_norm(x).square().sum(), x,
+                                create_graph=True)
+    gx.square().sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())

@@ -116,11 +116,9 @@ def test_help_names_what_is_still_missing(capsys):
         train.main(["--help"])
     out = capsys.readouterr().out
     flat = "".join(out.split())          # argparse wraps at spaces and hyphens
-    assert "Notportedyet" in flat
-    ported, missing = flat.split("Notportedyet")
-    assert "tensorparallelism" in missing and "--mesh_model" in missing
-    assert "dataparallel" in ported and "torch.distributed.run" in ported
-    assert "evaluation" not in missing   # cli/evaluate.py
+    assert "Notported" not in flat       # tensor parallelism was the last
+    assert "dataandtensorparallel" in flat and "torch.distributed.run" in flat
+    assert "--mesh_modelM" in flat
     assert "dwcgan_tpu_torch.cli.evaluate" in flat
     for flag in ("--procedural_data", "--resume", "--output_path", "--profile_dir",
                  "--use_pretrained_embed", "--mesh_model"):
