@@ -191,6 +191,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (CUDA events) beside phase 7's; (c) the 2 x 2 mesh (four ranks), fp32,
    1 step, held to (a)'s bounds.  NCCL with two ranks needs two cards:
    not run, and said so.  Prints its seconds.
+18. a mesh smaller than the world, and the host preprocessing library:
+   (a) three gloo ranks on the one card with `mesh_data 1`, `mesh_model
+   2`: ranks 0-1 form the 1 x 2 mesh and take phase 17 (a)'s 2 fp32 steps,
+   held against phase 17 (a)'s 2-rank run at its bounds (bit-equality
+   logged), `state.rng` and the replicated tensors bit-equal on both;
+   rank 2 lies outside the mesh, writes nothing and exits 0; (b) the
+   port's C++ host kernel (`dwcgan_tpu_torch/native/`, built by g++ on
+   the card's host) against its NumPy oracle on 16 seeded uint8 images,
+   218 x 178 -> crop 178 -> 128 with flips, within 1e-4 (the largest
+   difference logged); host ms per batch of 16 for NumPy and the library
+   on one OpenMP thread and on OpenMP's default, then from `num_workers`
+   threads calling it per image at once, as `DataPipeline`'s workers do
+   (no PIL on the card's machine: nothing is decoded).  Prints its
+   seconds.
 
 The last lines are the `kernels` JSON (nine kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
@@ -2851,16 +2865,21 @@ def tp_rows(axis, batches):
     return [type(b)(*(t[o:o + n] for t in b)) for b in batches]
 
 
-def tp_fp32_run(model: int, steps: int) -> dict:
+def tp_fp32_run(model: int, steps: int, mesh_data: int = -1) -> dict:
     """`steps` fp32 steps (TF32 off) of the flagship on this rank's rows of
     the global batch of TP_GLOBAL, draws from `state.rng`, dropout on; in
     one process (no group) the whole batch.  Per step its metrics and the
     full parameters on the host (gathered over the model group); at the
-    end this rank's replicated parameters and EMA copies and `state.rng`."""
+    end this rank's replicated parameters and EMA copies and `state.rng`.
+    None on a rank outside the mesh (`mesh_data` x `model` below the
+    world), which builds nothing."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = tp_config(model)
+    cfg.mesh_data = mesh_data
     axis = DataAxis.from_config(cfg)
+    if axis.idle:
+        return None
     dev = torch.device("cuda")
     state, step, _ = build_trainer(cfg, dev, seed=SEED, axis=axis)
     batches = synthetic_batches(cfg, dev, n=steps, seed=SEED + 40)
@@ -2933,6 +2952,11 @@ def tp_worker(rank: int, world: int, tmp: str) -> int:
     try:
         if world == TP_MODEL:
             out = dict(a=tp_fp32_run(TP_MODEL, TP_STEPS), b=tp_bf16_run(Path(tmp) / "quiet"))
+        elif world == SUB_WORLD:   # phase 18 (a): the 1 x 2 mesh on ranks 0-1
+            out = tp_fp32_run(TP_MODEL, TP_STEPS, mesh_data=1)
+            if out is None:        # the idle rank writes nothing
+                return 0
+            out = dict(a=out)
         else:
             out = dict(c=tp_fp32_run(TP_MODEL, 1))
         torch.save(out, Path(tmp) / f"tp{world}_rank{rank}.pt")
@@ -3040,7 +3064,7 @@ def phase_tensor_parallel(card, train_off) -> dict:
     med = lambda v: sorted(v)[len(v) // 2]
     secs = time.perf_counter() - t0
     result = dict(
-        a=a, c=c, seconds=secs,
+        a=a, c=c, seconds=secs, pair=[r["a"] for r in pair], one=want,
         b=[dict(launches=run["launches"], held=run["held"], collectives=run["collectives"],
                 peak_mib=run["peak_mib"], step_ms=med(run["times"]),
                 step_ms_min=min(run["times"]), step_ms_max=max(run["times"]))
@@ -3071,6 +3095,118 @@ def phase_tensor_parallel(card, train_off) -> dict:
     log(f"tensor_parallel: NCCL tensor parallelism was not run: NCCL refuses two ranks "
         f"on one card (duplicate GPU) and this machine has {torch.cuda.device_count()} "
         f"card(s); phase 17 took {secs:.1f} s")
+    return result
+
+
+# ---------------------------------------------------------------- phase 18
+
+SUB_WORLD = 3             # (a): gloo ranks, the 1 x 2 mesh on the first two
+NATIVE_N, NATIVE_H, NATIVE_W = 16, 218, 178    # (b): a CelebA batch of 16
+NATIVE_CROP, NATIVE_OUT = 178, 128
+NATIVE_ATOL = 1e-4        # tests/test_native.py's, library against NumPy
+NATIVE_REPS = 15
+
+
+def phase_mesh_subset(card, tp) -> dict:
+    """Phase 18 (a): the 1 x 2 mesh on the first two of three gloo ranks
+    against phase 17 (a)'s two ranks (`tp`: its result)."""
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        outs = run_ranks([[sys.executable, str(ROOT / "chip_smoke.py"), "--tp-worker",
+                           str(r), str(SUB_WORLD), tmp] for r in range(SUB_WORLD)])
+        # the rendezvous file aside, only the mesh's ranks wrote
+        written = sorted(p.name for p in Path(tmp).iterdir()
+                         if not p.name.startswith("store"))
+        want = [f"tp{SUB_WORLD}_rank{r}.pt" for r in range(TP_MODEL)]
+        if written != want:
+            raise AssertionError(f"mesh subset: the ranks wrote {written}, not {want}")
+        ranks = [torch.load(Path(tmp) / f"tp{SUB_WORLD}_rank{r}.pt")["a"]
+                 for r in range(TP_MODEL)]
+    idle = outs[-1]
+    checked = tp_check("mesh subset 1x2 of 3", ranks, tp["pair"][0], tp["one"], TP_MODEL)
+    same = lambda a, b: a["metrics"] == b["metrics"] and all(
+        torch.equal(v, q[k]) for p, q in zip(a["params"], b["params"]) for k, v in p.items())
+    bit_equal = all(same(r, q) for r, q in zip(ranks, tp["pair"]))
+    secs = time.perf_counter() - t0
+    log(f"mesh_subset: (a) {SUB_WORLD} gloo ranks on cuda:0, mesh_data 1 x mesh_model "
+        f"{TP_MODEL}: ranks 0-1 against phase 17 (a)'s 2-rank run, flagship fp32 (TF32 "
+        f"off), global batch {TP_GLOBAL}, {TP_STEPS} steps: worst relative metric "
+        f"difference per step {checked['worst_per_step']} (phase 17's one process "
+        f"against its pair {checked['repeat_per_step']}), gathered parameters max abs "
+        f"diff {checked['worst_param_abs']:.3e}, bit-equal to the pair: {bit_equal}; "
+        f"state.rng and the replicated tensors bit-equal on both ranks; rank 2 exited 0 "
+        f"and wrote nothing ({len(idle)} bytes of output); {secs:.1f} s; card {card}")
+    return dict(checked, bit_equal=bit_equal, seconds=secs)
+
+
+def _omp_set_threads(n: int) -> None:
+    """OpenMP's thread count for this thread's next parallel regions (the
+    library's OpenMP runtime, loaded with it)."""
+    ctypes.CDLL("libgomp.so.1").omp_set_num_threads(n)
+
+
+def _host_ms(fn, reps: int = NATIVE_REPS) -> float:
+    """Median host ms of `fn()` (host work only: no device)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_native(card) -> dict:
+    """Phase 18 (b): the host preprocessing library on the card's host."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dwcgan_tpu_torch import native
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (NATIVE_N, NATIVE_H, NATIVE_W, 3), dtype=np.uint8)
+    flips = rng.integers(0, 2, NATIVE_N).astype(np.int32)
+    args = (NATIVE_CROP, NATIVE_OUT)
+    got = native.preprocess_batch(images, *args, flips)
+    want = native.preprocess_batch(images, *args, flips, force_fallback=True)
+    err = np.abs(got - want)
+    if not np.isfinite(got).all() or err.max() > NATIVE_ATOL:
+        raise AssertionError(f"native: library vs NumPy max abs {err.max():.3e} "
+                             f"(bound {NATIVE_ATOL})")
+    default = native.omp_threads()
+    numpy_ms = _host_ms(lambda: native.preprocess_batch(images, *args, flips,
+                                                        force_fallback=True))
+    omp_ms = _host_ms(lambda: native.preprocess_batch(images, *args, flips))
+    _omp_set_threads(1)
+    try:
+        if native.omp_threads() != 1:
+            raise AssertionError("native: OpenMP did not take one thread")
+        one_ms = _host_ms(lambda: native.preprocess_batch(images, *args, flips))
+    finally:
+        _omp_set_threads(default)
+    workers = load_config(str(CONFIG)).num_workers
+    with ThreadPoolExecutor(workers) as pool:
+        def per_image(fallback):
+            list(pool.map(lambda i: native.preprocess_batch(
+                images[i:i + 1], *args, flips[i:i + 1], force_fallback=fallback),
+                range(NATIVE_N)))
+        threads = dict(numpy=_host_ms(lambda: per_image(True)),
+                       native=_host_ms(lambda: per_image(False)))
+    result = dict(max_abs_err=float(err.max()), differ=float((err > 0).mean()),
+                  build_s=build_s, omp_default=default, numpy_ms=numpy_ms,
+                  native_one_thread_ms=one_ms, native_omp_ms=omp_ms, workers=workers,
+                  workers_numpy_ms=threads["numpy"], workers_native_ms=threads["native"],
+                  host_cores=os.cpu_count())
+    log(f"native: (b) {lib.name} built by g++ in {build_s:.1f} s; {NATIVE_N} seeded "
+        f"uint8 images {NATIVE_H}x{NATIVE_W} -> crop {NATIVE_CROP} -> {NATIVE_OUT}, "
+        f"flips: library vs NumPy oracle max abs {err.max():.3e} (bound {NATIVE_ATOL}), "
+        f"{(err > 0).mean():.1%} of the elements differ; host ms per batch of "
+        f"{NATIVE_N} (median of {NATIVE_REPS}): NumPy {numpy_ms:.3f}, library one "
+        f"OpenMP thread {one_ms:.3f}, library OpenMP default ({default} threads) "
+        f"{omp_ms:.3f}; {workers} threads calling per image at once: NumPy "
+        f"{threads['numpy']:.3f}, library {threads['native']:.3f}; host cores "
+        f"{os.cpu_count()}; card {card}")
     return result
 
 
@@ -3105,6 +3241,8 @@ def main() -> int:
     data_parallel = phase_data_parallel(card, train_off)
     arith = phase_norm_compute(vocab, card, serve_off, train_off)
     tensor_parallel = phase_tensor_parallel(card, train_off)
+    phase_mesh_subset(card, tensor_parallel)
+    phase_native(card)
     log("stem_on_vs_off (phases 9-10 against 4 and 7 of this run): serving "
         + json.dumps({"on": serve_on, "off": serve_off}) + "; training "
         + json.dumps({"on": train_on, "off": train_off}))
@@ -3221,6 +3359,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-worker":   # phase 15 (b)
         sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3]))
-    if len(sys.argv) == 5 and sys.argv[1] == "--tp-worker":   # phase 17
+    if len(sys.argv) == 5 and sys.argv[1] == "--tp-worker":   # phases 17, 18 (a)
         sys.exit(tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -40,7 +40,10 @@ Data and tensor parallel (`parallel/mesh.py`): under
 `torch.distributed.run` every rank joins the process group (NCCL, one card
 a rank: `cuda:LOCAL_RANK`) and takes its place on the `mesh_data x
 mesh_model` mesh (`mesh_data` -1: the world size over `mesh_model`;
-`--mesh_model` overrides the config's).  `cfg.batch_size` is the global
+`--mesh_model` overrides the config's).  A mesh smaller than the world
+takes ranks 0 .. `mesh_data x mesh_model` - 1, as JAX takes the first
+devices; every other rank creates the groups, writes nothing and exits 0.
+`cfg.batch_size` is the global
 batch; each rank's `DataPipeline` feeds its data index's share of every
 global batch, the same rows to every rank of a model group.  The ranks of a
 model group hold their shards of the tensor-parallel layers
@@ -268,8 +271,14 @@ def _train(args, dev):
     lead = axis.rank == 0   # the rank that writes and prints
     renders = axis.data_rank == 0   # rank 0's model group runs the grids
     if lead:
-        print(f"mesh: {dict(data=axis.data, model=axis.model)} over {axis.world} "
+        print(f"mesh: {dict(data=axis.data, model=axis.model)} over {axis.mesh} "
               "devices")
+    if axis.idle:
+        # outside a mesh smaller than the world, as JAX leaves the devices
+        # past `data * model` unused: no trainer, no feed, no file
+        print(f"rank {axis.rank} of {axis.world}: outside the {axis.data}x"
+              f"{axis.model} mesh, idle")
+        return None, {}
 
     vocab = Vocab(cfg.dataset)
     embed_table = None

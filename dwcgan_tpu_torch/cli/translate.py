@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from dwcgan_tpu_torch.config import load_config
-from dwcgan_tpu_torch.data.preprocess import preprocess_batch
+from dwcgan_tpu_torch.data.celeba import _center_crop_resize
 from dwcgan_tpu_torch.device import resolve_device
 from dwcgan_tpu_torch.eval.harness import read_src2trg
 from dwcgan_tpu_torch.interop.jax_params import load_jax_params
@@ -42,25 +42,6 @@ from dwcgan_tpu_torch.train.checkpoint import (checkpoint_file,
                                                checkpoint_header,
                                                read_checkpoint)
 from dwcgan_tpu_torch.train.sampler import make_infer_fn
-
-
-def _center_crop_resize(img, crop: int, size: int,
-                        backend: str = "native") -> np.ndarray:
-    """CenterCrop(crop) -> Resize(size) -> [-1, 1], HWC float32, as
-    `dwcgan_tpu/data/celeba.py::_center_crop_resize`: by default the native
-    kernel's half-pixel bilinear (`data/preprocess.py`), which the JAX CLI
-    runs (`backend="auto"`); `backend="pil"` is PIL's antialiased bilinear."""
-    if backend not in ("native", "pil"):
-        raise ValueError(f"backend must be 'native' or 'pil', got {backend!r}")
-    img = img.convert("RGB")
-    if backend == "native":
-        return preprocess_batch(np.asarray(img, dtype=np.uint8)[None], crop, size)[0]
-    from PIL import Image
-    w, h = img.size
-    left, top = (w - crop) // 2, (h - crop) // 2
-    img = img.crop((left, top, left + crop, top + crop))
-    img = img.resize((size, size), Image.BILINEAR)
-    return np.asarray(img, dtype=np.float32) / 127.5 - 1.0
 
 
 def translate_batch(infer, images: np.ndarray, commands: Sequence[str],

@@ -7,10 +7,12 @@ port's counterpart of `dwcgan_tpu/data/celeba.py:57-159`).
 - each sample pairs with a random other sample's label;
 - the command is synthesized on the fly and tokenized to a fixed width;
 - the image is decoded by PIL (optional: without it an item raises, as in
-  the JAX package), then centre-cropped, resized and, in training, flipped
-  at random by `data/preprocess.py` (the NumPy mirror of the JAX package's
-  native kernel, which its CLI runs by default).  The flip mirrors the
-  source before the crop, JAX's order.
+  the JAX package), flipped at random in training (the source, before the
+  crop: JAX's order), then centre-cropped and resized by
+  `_center_crop_resize`, with JAX's backends: `auto` and `native` the
+  port's C++ kernel (`dwcgan_tpu_torch/native/`, bit-equal to the JAX
+  package's, which its `auto` takes wherever it builds; the port's raises
+  where it does not), `pil` PIL's antialiased bilinear.
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from dwcgan_tpu_torch import native
 from dwcgan_tpu_torch.data.drawkey import draw_key
-from dwcgan_tpu_torch.data.preprocess import preprocess_batch
 from dwcgan_tpu_torch.text.synthesis import CELEBA_ATTRS, TextSynthesizer
 from dwcgan_tpu_torch.text.vocab import Vocab, tokens_to_ids
 
@@ -30,6 +32,29 @@ try:  # Pillow is optional: the synthetic and procedural data never need it
     from PIL import Image
 except ImportError:  # pragma: no cover
     Image = None
+
+
+RESIZE_BACKENDS = ("auto", "native", "pil")
+
+
+def _center_crop_resize(img, crop: int, size: int,
+                        backend: str = "auto") -> np.ndarray:
+    """CenterCrop(crop) -> Resize(size) -> [-1, 1] of a PIL image, HWC
+    float32, as `dwcgan_tpu/data/celeba.py::_center_crop_resize`: `auto`
+    and `native` the C++ kernel's half-pixel bilinear
+    (`native.preprocess_batch`), `pil` PIL's antialiased bilinear (the
+    reference's torchvision path)."""
+    if backend not in RESIZE_BACKENDS:
+        raise ValueError(f"backend must be one of {RESIZE_BACKENDS}, got {backend!r}")
+    img = img.convert("RGB")
+    if backend != "pil":
+        return native.preprocess_batch(np.asarray(img, dtype=np.uint8)[None], crop,
+                                       size)[0]
+    w, h = img.size
+    left, top = (w - crop) // 2, (h - crop) // 2
+    img = img.crop((left, top, left + crop, top + crop))
+    img = img.resize((size, size), Image.BILINEAR)
+    return np.asarray(img, dtype=np.float32) / 127.5 - 1.0
 
 
 class CelebADataset:
@@ -41,12 +66,14 @@ class CelebADataset:
                  selected_attrs: Tuple[str, ...] = CELEBA_ATTRS,
                  mode: str = "train", crop_size: int = 178,
                  image_size: int = 128, max_text_len: int = 80,
-                 seed: int = 1234, test_split: int = 1999):
+                 seed: int = 1234, test_split: int = 1999,
+                 resize_backend: str = "auto"):
         self.image_dir = image_dir
         self.mode = mode
         self.crop_size = crop_size
         self.image_size = image_size
         self.max_text_len = max_text_len
+        self.resize_backend = resize_backend
         self.vocab = Vocab("CelebA")
         self.seed = seed
         self.rng = random.Random(seed)
@@ -99,9 +126,10 @@ class CelebADataset:
         if Image is None:
             raise RuntimeError("Pillow not available; use the synthetic pipeline")
         with Image.open(os.path.join(self.image_dir, fname)) as im:
-            arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
-        flip = self.mode == "train" and rng.random() < 0.5
-        image = preprocess_batch(arr[None], self.crop_size, self.image_size,
-                                 hflips=np.array([flip]))[0]
+            img = im.convert("RGB")
+        if self.mode == "train" and rng.random() < 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        image = _center_crop_resize(img, self.crop_size, self.image_size,
+                                    self.resize_backend)
         return (image, np.asarray(src_label, dtype=np.float32),
                 np.asarray(trg_label, dtype=np.float32), ids[0], lens[0])

@@ -2,10 +2,12 @@
 half-pixel bilinear resize + [-1, 1] normalisation.
 
 A copy of the NumPy branch of `dwcgan_tpu/native/__init__.py`
-(`_preprocess_one_numpy`, `preprocess_batch`), which mirrors the JAX
-package's C++ kernel (`native/image_ops.cpp`): the function the JAX CLI and
-eval harness run by default (`_center_crop_resize(backend="auto")`).  The
-port keeps its own copy and builds no native library.
+(`_preprocess_one_numpy`, `preprocess_batch`): the plain version of the
+port's C++ kernel (`dwcgan_tpu_torch/native/`, `csrc/image_ops.cpp`), which
+the tests hold that kernel against, within 1e-4 (it floors and blends in
+float64 and divides by 127.5, where the kernel truncates, blends as
+v00 + (v01 - v00) * fx in float32 and multiplies by 1 / 127.5f).  Reached
+only through `native.preprocess_batch(..., force_fallback=True)`.
 """
 
 from __future__ import annotations

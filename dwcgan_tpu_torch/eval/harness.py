@@ -91,11 +91,11 @@ def fake_batch(infer, images: np.ndarray, commands: Sequence[str], vocab,
 def load_images(image_dir: str, names: Sequence[str], crop_size: int,
                 image_size: int) -> np.ndarray:
     """The named images decoded by PIL, centre-cropped and resized as the
-    JAX CLI does (`_center_crop_resize`: the native bilinear) -> [N, H, W, 3]
-    float32 in [-1, 1]."""
+    JAX harness does (`_center_crop_resize`, `auto`: the C++ kernel's
+    bilinear) -> [N, H, W, 3] float32 in [-1, 1]."""
     from PIL import Image
 
-    from dwcgan_tpu_torch.cli.translate import _center_crop_resize
+    from dwcgan_tpu_torch.data.celeba import _center_crop_resize
     imgs = []
     for name in names:
         with Image.open(os.path.join(image_dir, name)) as im:

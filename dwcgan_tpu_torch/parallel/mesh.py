@@ -34,8 +34,15 @@ join the slices inside the forward and backward.  A sharded parameter's
 gradient (the rank's slice) is averaged over the data group (one model
 index); a replicated one's, and the metrics, over the whole mesh, which
 gives every rank of a model group the same bits (`all_reduce_grads`).
-With `mesh_model` 1 no group is made and the data axis is the world, as
-before.
+With `mesh_model` 1 on the whole world no group is made and the data
+axis is the world.
+
+A mesh smaller than the world (`mesh_data x mesh_model` below the number
+of ranks) is built on ranks `0 .. data * model - 1`, as JAX builds it on
+`devices[:data * model]` (mesh.py:82-92).  Every collective then runs over
+the mesh's own group; a rank outside the mesh is idle (`DataAxis.idle`):
+it takes part in creating the groups, which torch requires of every rank,
+and nothing else.
 
 Launch: `python -m torch.distributed.run --nproc_per_node=N -m
 dwcgan_tpu_torch.cli.train ... [--mesh_model M]` (NCCL, one card a rank);
@@ -109,23 +116,32 @@ def draw(fn, shape, generator=None, device=None, rows: Optional[Rows] = None):
 @dataclass(frozen=True)
 class DataAxis:
     """The mesh of one run: this rank, the world size, the global batch and
-    the model axis's size; the data axis is `world // model`.  Built by
-    `from_config`; in one process rank 0 of 1.  `grouped`: a process group
-    exists, so the collectives run (a group of one rank included).
-    `data_group`: this rank's data group (None: the world, `model` 1);
-    `model_group`: its model group (None: `model` 1)."""
+    the mesh's two axes, `data` x `model`, on ranks 0 .. `mesh` - 1.  Built
+    by `from_config`; in one process rank 0 of 1.  `grouped`: a process
+    group exists, so the collectives run (a group of one rank included).
+    `data_group`: this rank's data group (None: the world, `model` 1 and
+    the mesh the world); `model_group`: its model group (None: `model` 1);
+    `mesh_group`: the mesh's ranks (None: the mesh is the world)."""
     rank: int
     world: int
     global_batch: int
     grouped: bool = False
     model: int = 1
+    data: int = 1
     data_group: Any = field(default=None, compare=False, repr=False)
     model_group: Optional[ModelGroup] = field(default=None, compare=False,
                                               repr=False)
+    mesh_group: Any = field(default=None, compare=False, repr=False)
 
     @property
-    def data(self) -> int:
-        return self.world // self.model
+    def mesh(self) -> int:
+        """The number of ranks in the mesh."""
+        return self.data * self.model
+
+    @property
+    def idle(self) -> bool:
+        """This rank lies outside the mesh: it trains nothing."""
+        return self.rank >= self.mesh
 
     @property
     def data_rank(self) -> int:
@@ -152,41 +168,51 @@ class DataAxis:
     @classmethod
     def from_config(cls, cfg) -> "DataAxis":
         """From the config (`check_mesh`) and the process group's rank and
-        size, or rank 0 of 1 without one.  With `mesh_model` above 1 every
-        rank makes every data and model group (`mesh_groups`): every rank
-        calls this alike."""
+        size, or rank 0 of 1 without one.  With `mesh_model` above 1, or a
+        mesh smaller than the world, every rank makes every group
+        (`mesh_groups`): every rank calls this alike."""
         grouped = dist.is_available() and dist.is_initialized()
         rank = dist.get_rank() if grouped else 0
         world = dist.get_world_size() if grouped else 1
-        check_mesh(cfg, world)
+        data = check_mesh(cfg, world)
         model = cfg.mesh_model
-        if model == 1:
-            return cls(rank, world, cfg.batch_size, grouped)
-        data_group, model_group = mesh_groups(rank, world, model)
-        return cls(rank, world, cfg.batch_size, grouped, model, data_group,
-                   model_group)
+        if model == 1 and data == world:
+            return cls(rank, world, cfg.batch_size, grouped, data=data)
+        data_group, model_group, mesh_group = mesh_groups(rank, world, model, data)
+        return cls(rank, world, cfg.batch_size, grouped, model, data, data_group,
+                   model_group, mesh_group)
 
 
-def mesh_groups(rank: int, world: int, model: int):
-    """(this rank's data group, its `ModelGroup`) on the `world // model x
-    model` mesh.  Every rank creates every group, in the same order (the
-    model groups by data index, then the data groups by model index)."""
-    data = world // model
-    by_data = [dist.new_group(list(range(d * model, (d + 1) * model)))
-               for d in range(data)]
-    by_model = [dist.new_group(list(range(j, world, model))) for j in range(model)]
-    return (by_model[rank % model],
-            ModelGroup(by_data[rank // model], rank % model, model))
+def mesh_groups(rank: int, world: int, model: int, data: int):
+    """(this rank's data group, its `ModelGroup`, the mesh's group) on the
+    `data x model` mesh of ranks 0 .. data * model - 1.  Every rank of the
+    world creates every group, in the same order (the mesh's where it is
+    smaller than the world, then with a model axis the model groups by data
+    index and the data groups by model index), as torch requires, idle
+    ranks included.  A group that is the world is None (the default group);
+    with `model` 1 there is no model group and the data group is the
+    mesh's; an idle rank gets (None, None, None)."""
+    size = data * model
+    mesh = dist.new_group(list(range(size))) if size < world else None
+    by_data, by_model = [], [mesh]
+    if model > 1:
+        by_data = [dist.new_group(list(range(d * model, (d + 1) * model)))
+                   for d in range(data)]
+        by_model = [dist.new_group(list(range(j, size, model))) for j in range(model)]
+    if rank >= size:
+        return None, None, None
+    group = (ModelGroup(by_data[rank // model], rank % model, model)
+             if model > 1 else None)
+    return by_model[rank % model], group, mesh
 
 
 def check_mesh(cfg, world: int) -> int:
     """The data axis's size for `world` ranks: `cfg.mesh_data` (-1: the
     world size over the model axis; anything else times `cfg.mesh_model`
-    must equal the world size) and `cfg.batch_size` (the global batch,
-    divisible by the data axis), with JAX's messages
-    (dwcgan_tpu/parallel/mesh.py:86-88, dwcgan_tpu/cli/train.py:130-132).
-    JAX would build a smaller mesh on the first devices; the port refuses
-    that, because every launched rank takes part in the collectives."""
+    at most the world size, the mesh then on the first ranks) and
+    `cfg.batch_size` (the global batch, divisible by the data axis), with
+    JAX's messages (dwcgan_tpu/parallel/mesh.py:82-92,
+    dwcgan_tpu/cli/train.py:130-132)."""
     model = cfg.mesh_model
     if model < 1:
         raise ValueError(f"mesh_model {model} must be at least 1")
@@ -201,10 +227,6 @@ def check_mesh(cfg, world: int) -> int:
     if data * model > world:
         raise ValueError(f"mesh {data}x{model} needs {data * model} devices, "
                          f"have {world}")
-    if data * model != world:
-        raise ValueError(f"mesh {data}x{model} over {world} devices: the mesh "
-                         "is every rank (mesh_data -1, or mesh_data x "
-                         "mesh_model the world size)")
     if cfg.batch_size % data:
         raise ValueError(
             f"batch_size {cfg.batch_size} must be divisible by the data mesh "
@@ -252,8 +274,8 @@ def all_reduce_grads(params, axis: Optional[DataAxis]) -> None:
     if axis is None or not axis.grouped:
         return
     params = list(params)
-    _all_reduce_mean([p for p in params if not hasattr(p, "tp_shard")], None,
-                     axis.world)
+    _all_reduce_mean([p for p in params if not hasattr(p, "tp_shard")],
+                     axis.mesh_group, axis.mesh)
     _all_reduce_mean([p for p in params if hasattr(p, "tp_shard")],
                      axis.data_group, axis.data)
 
@@ -276,14 +298,15 @@ def all_reduce_metrics(metrics: Dict, axis: Optional[DataAxis]) -> Dict:
         return metrics
     stacked = torch.stack([metrics[k].float() for k in keys])
     count_collective("all_reduce_metrics", stacked)
-    dist.all_reduce(stacked, op=dist.ReduceOp.SUM)
-    stacked.div_(axis.world)
+    dist.all_reduce(stacked, op=dist.ReduceOp.SUM, group=axis.mesh_group)
+    stacked.div_(axis.mesh)
     return {**metrics, **{k: stacked[i] for i, k in enumerate(keys)}}
 
 
 def barrier(axis: Optional[DataAxis]) -> None:
+    """Wait for every rank of the mesh."""
     if axis is not None and axis.grouped:
-        dist.barrier()
+        dist.barrier(group=axis.mesh_group)
 
 
 def destroy() -> None:

@@ -1,15 +1,16 @@
 """The port's data feed against the JAX package's on the CPU: the SplitMix64
 draw key, the procedural faces and their attribute probe, the CelebA split
-and items, and the threaded `DataPipeline`'s batch stream, all bit-equal
-(the CelebA image within the 1e-4 the native kernel keeps from its NumPy
-mirror); then the port-only parts: a worker's error, `start`, `to_device`
-(its pinned path to the card is in tests/test_torch_cuda_kernels.py)."""
+and items (with each of JAX's resize backends), and the threaded
+`DataPipeline`'s batch stream, all bit-equal; then the port-only parts: a
+worker's error, `start`, `to_device` (its pinned path to the card is in
+tests/test_torch_cuda_kernels.py)."""
 
 import numpy as np
 import pytest
 import torch
 from PIL import Image
 
+from dwcgan_tpu import native as jax_native
 from dwcgan_tpu.data import celeba as jax_celeba
 from dwcgan_tpu.data import procedural as jax_procedural
 from dwcgan_tpu.data.drawkey import draw_key as jax_draw_key
@@ -81,13 +82,15 @@ def celeba_files(tmp_path_factory):
     return tmp
 
 
+@pytest.mark.parametrize("backend", ["auto", "native", "pil"])
 @pytest.mark.parametrize("mode", ["train", "test"])
-def test_celeba_split_and_items_match_jax(celeba_files, mode):
+def test_celeba_split_and_items_match_jax(celeba_files, mode, backend):
+    assert jax_native.available()   # else JAX's `auto` would take PIL
     kw = dict(mode=mode, crop_size=36, image_size=32, max_text_len=20, seed=3,
               test_split=4)
     args = (str(celeba_files), str(celeba_files / "attrs.txt"))
-    ours = celeba.CelebADataset(*args, **kw)
-    theirs = jax_celeba.CelebADataset(*args, resize_backend="native", **kw)
+    ours = celeba.CelebADataset(*args, resize_backend=backend, **kw)
+    theirs = jax_celeba.CelebADataset(*args, resize_backend=backend, **kw)
     assert ours.samples == theirs.samples
     assert len(ours) == (4 if mode == "test" else 8)
     flips = 0
@@ -96,12 +99,11 @@ def test_celeba_split_and_items_match_jax(celeba_files, mode):
             a, b = ours.item(i, epoch), theirs.item(i, epoch)
             _equal_items(a[1:], b[1:])
             assert a[0].shape == (32, 32, 3) and a[0].dtype == np.float32
-            np.testing.assert_allclose(a[0], b[0], atol=1e-4, rtol=0)
+            np.testing.assert_array_equal(a[0], b[0])
             # the flip JAX drew, seen in the image
-            unflipped = celeba.preprocess_batch(
-                np.asarray(Image.open(celeba_files / ours.samples[i][0]))[None],
-                36, 32)[0]
-            flips += not np.allclose(a[0], unflipped, atol=1e-4)
+            with Image.open(celeba_files / ours.samples[i][0]) as im:
+                unflipped = celeba._center_crop_resize(im, 36, 32, backend)
+            flips += not np.array_equal(a[0], unflipped)
     assert (flips > 0) == (mode == "train")
 
 

@@ -4,6 +4,7 @@ card that is not there instead of drifting to the CPU."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -95,6 +96,70 @@ def test_the_scans_cover_the_tensor_parallel_modules():
          f"if m.split('.')[0] in {set(FORBIDDEN)!r}))"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+
+
+# and those of the host preprocessing library
+NATIVE_MODULES = ("native/__init__.py", "data/preprocess.py")
+# a string of the port's code (not a docstring) naming the JAX package's
+# native library: a path through the root `native/` directory, its `.so`,
+# or the module ("native" alone is also a resize backend's name)
+JAX_NATIVE = re.compile(r"(^|[/\\])native[/\\]|[/\\]native$|dwcgan_tpu[./]native|"
+                        r"libdwc_image_ops\.so")
+
+
+def _joins_native(node) -> bool:
+    """`path / "native"` or `os.path.join(..., "native", ...)`."""
+    if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+        parts = [node.right]
+    elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "join":
+        parts = node.args
+    else:
+        return False
+    return any(isinstance(p, ast.Constant) and p.value == "native" for p in parts)
+
+
+def _code_strings(tree):
+    """The string constants of a module's code, its docstrings left out."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_the_scans_cover_the_native_library():
+    """The host library is the port's own: its module and source are
+    scanned like every other, importing and running it loads nothing of
+    JAX, it builds from `csrc/` into `build/host/`, and no code of the port
+    names the JAX package's native library."""
+    from dwcgan_tpu_torch import native
+    scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert set(NATIVE_MODULES) <= scanned
+    assert native.SOURCE == PACKAGE / "csrc" / "image_ops.cpp"
+    assert native.library_path().parent == ROOT / "build" / "host"
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, numpy as np; "
+         "from dwcgan_tpu_torch import native; "
+         "native.preprocess_batch(np.zeros((1, 8, 8, 3), np.uint8), 8, 4); "
+         "print(sorted(m for m in sys.modules "
+         f"if m.split('.')[0] in {set(FORBIDDEN)!r}))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+    for path in sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in _code_strings(tree):
+            assert not JAX_NATIVE.search(node.value), \
+                f"{path}:{node.lineno} names the JAX native library: {node.value!r}"
+        joins = [n.lineno for n in ast.walk(tree) if _joins_native(n)]
+        assert not joins, f"{path}:{joins} joins a path through native/"
+    for src in sorted((PACKAGE / "csrc").iterdir()):
+        includes = [ln for ln in src.read_text().splitlines()
+                    if ln.lstrip().startswith("#include")]
+        assert not any(JAX_NATIVE.search(ln) for ln in includes), (src, includes)
 
 
 def test_the_scans_cover_the_legacy_modules():

@@ -38,9 +38,9 @@ timeout.
    copy are bit-equal on the ranks of a model group, and each rank holds
    only its shards.
 5. `check_mesh` accepts what JAX's `create_mesh` accepts, with JAX's data
-   axis, and rejects what it rejects with its messages (JAX's assert on a
-   model axis that does not divide the devices has none; a mesh smaller
-   than the world is JAX's to build and the port's to refuse).
+   axis (a mesh smaller than the world included, on the first ranks), and
+   rejects what it rejects with its messages (JAX's assert on a model axis
+   that does not divide the devices has none).
 """
 
 import os
@@ -133,7 +133,7 @@ def _pairs(rank, world):
     import torch.nn.functional as F
     from dwcgan_tpu_torch.parallel import tensor as tp
     from dwcgan_tpu_torch.parallel.mesh import mesh_groups
-    mg = mesh_groups(rank, world, world)[1]
+    mg = mesh_groups(rank, world, world, 1)[1]
     g = torch.Generator().manual_seed(0)
     x = torch.randn(3, 4, generator=g, dtype=torch.float64)
     w1 = torch.randn(6, 4, generator=g, dtype=torch.float64)
@@ -526,12 +526,9 @@ def test_check_mesh_accepts_and_rejects_as_jax(world, data, model, batch):
                        f"axis ({d}); set batch_size or mesh_data accordingly")
     except AssertionError as e:
         jax_err, d = str(e), None
-    if jax_err is None and d * model < world:
-        # JAX builds a smaller mesh on the first devices; the port refuses it
-        with pytest.raises(ValueError, match="every rank"):
-            check_mesh(cfg, world)
-        return
     if jax_err is None:
+        # a mesh smaller than the world included: JAX builds it on the
+        # first devices, the port on the first ranks
         assert check_mesh(cfg, world) == d
     elif jax_err == "":   # `assert len(devices) % model == 0`: no message
         with pytest.raises(ValueError, match=f"mesh_model {model} does not divide"):

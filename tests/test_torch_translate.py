@@ -2,9 +2,9 @@
 of JAX generator parameters, and the written edits against the JAX
 package's `make_infer_fn` on the same inputs.  The images are preprocessed
 as the JAX CLI does by default (`_center_crop_resize(backend="auto")`: the
-native half-pixel bilinear); the port's copy of it is held against
-`dwcgan_tpu.native.preprocess_batch`, and its PIL path against the JAX
-PIL path."""
+native half-pixel bilinear), bit for bit: the port's C++ kernel against
+`dwcgan_tpu.native.preprocess_batch`'s, its NumPy oracle against the JAX
+NumPy branch, and its PIL path against the JAX PIL path."""
 
 import os
 
@@ -23,6 +23,7 @@ from dwcgan_tpu.models.generator import Generator as JaxGenerator
 from dwcgan_tpu.ops import norms as jnorms
 from dwcgan_tpu.text.vocab import Vocab, encode_commands
 from dwcgan_tpu.train.sampler import make_infer_fn as jax_make_infer_fn
+from dwcgan_tpu_torch import native as port_native
 from dwcgan_tpu_torch.cli import translate
 from dwcgan_tpu_torch.data.preprocess import preprocess_batch
 from dwcgan_tpu_torch.interop.jax_params import flatten_params
@@ -75,30 +76,34 @@ def test_center_crop_resize_matches_jax_pil_path(setup):
 
 def test_center_crop_resize_matches_the_jax_cli_default(setup):
     """By default the port preprocesses as the JAX CLI does: the native
-    kernel's half-pixel bilinear (its C++ build here, within the 1e-4 that
-    tests/test_native.py allows between it and its NumPy mirror)."""
+    kernel's half-pixel bilinear, the port's build of it bit-equal to the
+    JAX package's."""
     tmp, cfg = setup[0], setup[1]
+    assert native.available()   # else JAX's `auto` would take PIL
     for name in ("a.png", "b.png"):
         with Image.open(tmp / name) as im:
             ours = translate._center_crop_resize(im, cfg.crop_size, cfg.image_size)
             theirs = jax_crop_resize(im, cfg.crop_size, cfg.image_size, backend="auto")
         assert ours.shape == (cfg.image_size, cfg.image_size, 3)
-        np.testing.assert_allclose(ours, theirs, atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(ours, theirs)
 
 
 @pytest.mark.parametrize("out_size", [32, 56])   # down- and upscaling
 def test_preprocess_batch_matches_jax_native(out_size):
-    """The port's copy against the JAX package's NumPy branch exactly, and
-    against its native kernel within 1e-4, with flips (an even w - crop)."""
+    """The port's C++ kernel against the JAX package's, and its NumPy
+    oracle against the JAX NumPy branch, both exactly, with flips (an even
+    w - crop)."""
+    assert native.available()
     rng = np.random.default_rng(5)
     images = rng.integers(0, 256, (3, 50, 46, 3), dtype=np.uint8)
     flips = np.array([0, 1, 0])
-    ours = preprocess_batch(images, 40, out_size, flips)
+    ours = port_native.preprocess_batch(images, 40, out_size, flips)
     assert ours.shape == (3, out_size, out_size, 3) and ours.dtype == np.float32
+    np.testing.assert_array_equal(ours, native.preprocess_batch(images, 40, out_size,
+                                                                flips))
     np.testing.assert_array_equal(
-        ours, native.preprocess_batch(images, 40, out_size, flips, force_fallback=True))
-    np.testing.assert_allclose(ours, native.preprocess_batch(images, 40, out_size, flips),
-                               atol=1e-4, rtol=0)
+        preprocess_batch(images, 40, out_size, flips),
+        native.preprocess_batch(images, 40, out_size, flips, force_fallback=True))
 
 
 def test_translate_main_matches_jax_infer(setup):
