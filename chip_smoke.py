@@ -205,6 +205,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    threads calling it per image at once, as `DataPipeline`'s workers do
    (no PIL on the card's machine: nothing is decoded).  Prints its
    seconds.
+19. the quality protocol (`cli/quality_eval.py`): `cli/train.py`'s `main`
+   on `configs/celeba_quality.yaml` (a copy with `snapshot_save_iter` 20)
+   and `--procedural_data` at full width (128 px, bf16), 40 steps: finite
+   metric rows, checkpoints 20 and 40; `quality_eval.main` over both on
+   the card with `--n_eval 256`: exactly 11 / 4 / 4 / 2 launches of rows
+   1-4 per translated batch (8 of the set, the no-change batch and the
+   grid's, per checkpoint) and no other, finite rows, `quality_trend.json`
+   holding them; then step 40's EMA generator in fp32 (TF32 off) on the
+   first 128 held-out faces on the card and on the CPU with the same
+   `init_random_inception(0)`: every per-bit accuracy within 1/128,
+   `nochange_recon_l1` within rtol 1e-4, `fid_rel` within rtol 1e-3, the
+   largest gaps printed, rows 1-4 launched on the card (5 batches' worth)
+   and not on the CPU.  Prints the rows and the host seconds of training,
+   evaluation and each side of the comparison.
 
 The last lines are the `kernels` JSON (nine kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
@@ -219,7 +233,8 @@ the stem entries carry phase 8's HMMA counts of the kernels they run as
 `launches_block_options`, rows 1-4 per legacy batch as `launches_legacy`,
 phase 15's per step of the NCCL data axis as `launches_data_parallel`
 and phase 17 (b)'s per step on each tensor-parallel rank as
-`launches_tensor_parallel`;
+`launches_tensor_parallel`; rows 1-4 phase 19's over `quality_eval`'s
+two checkpoints as `launches_quality_eval`;
 rows 1-3 and 5-6 carry phase 16's `norm_compute_bf16`: the bf16
 arithmetic's ms per batch / step beside the same sites' `arith`-off ms
 of this run, its largest error and its launches),
@@ -255,7 +270,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from dwcgan_tpu_torch.cli import convert_inception, evaluate, import_reference
+from dwcgan_tpu_torch.cli import (convert_inception, evaluate, import_reference,
+                                  quality_eval)
 from dwcgan_tpu_torch.cli import train as train_cli
 from dwcgan_tpu_torch.cli.train import (build_trainer, build_vgg_loss,
                                         synthetic_batches)
@@ -3210,6 +3226,134 @@ def phase_native(card) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 19
+
+QUALITY_CONFIG = ROOT / "configs" / "celeba_quality.yaml"
+QUALITY_NAME = QUALITY_CONFIG.stem
+QUALITY_STEPS = 40            # the run's steps
+QUALITY_SNAPSHOT = 20         # snapshot_save_iter: checkpoints 20 and 40
+QUALITY_N_EVAL = 256          # quality_eval's --n_eval on the card
+QUALITY_CMP = 128             # faces of the fp32 card-vs-CPU comparison
+QUALITY_BIT_TOL = 1 / QUALITY_CMP    # a per-bit accuracy: one face either way
+QUALITY_RECON_RTOL = 1e-4
+QUALITY_FID_RTOL = 1e-3
+
+
+def quality_config(tmp: Path) -> str:
+    """A copy of `configs/celeba_quality.yaml`, under its own name, with
+    checkpoints every QUALITY_SNAPSHOT steps."""
+    text, n = re.subn(r"^snapshot_save_iter:.*$", f"snapshot_save_iter: {QUALITY_SNAPSHOT}",
+                      QUALITY_CONFIG.read_text(), flags=re.M)
+    if n != 1:
+        raise AssertionError(f"snapshot_save_iter is not set once in {QUALITY_CONFIG}")
+    path = tmp / QUALITY_CONFIG.name
+    path.write_text(text)
+    return str(path)
+
+
+def quality_row_fp32(cfg, ckpt, held, dev):
+    """The unrounded row of `ckpt`'s EMA generator over `held` on `dev`, the
+    generator and InceptionV3 (`init_random_inception(0)`) in fp32 with
+    TF32 off; the norm kernels' launches during it."""
+    vocab = Vocab(cfg.dataset)
+    gen = build_generator(cfg, vocab.size, device=dev)
+    gen.load_state_dict(ckpt["ema_gen"])
+    iv3 = init_random_inception(0, device=dev)
+    reset_launches()
+    with fp32_precision():
+        row = quality_eval.evaluate(make_infer_fn(cfg, gen), iv3, held, rounded=False)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return row, dict(kernels.LAUNCHES)
+
+
+def phase_quality(card) -> dict:
+    """Phase 19: the quality protocol on the card (module docstring)."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        cfg_path = quality_config(tmp)
+        cfg = load_config(cfg_path)
+        t = time.perf_counter()
+        train_cli.main(["--config", cfg_path, "--procedural_data", "--output_path",
+                        str(tmp / "run"), "--max_steps", str(QUALITY_STEPS)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        ckpt_dir = tmp / "run" / "outputs" / QUALITY_NAME / "checkpoints"
+        steps = checkpoint_steps(str(ckpt_dir))
+        if steps != [QUALITY_SNAPSHOT, QUALITY_STEPS]:
+            raise AssertionError(f"checkpoints {steps}")
+        with open(tmp / "run" / "logs" / QUALITY_NAME / "metrics.jsonl") as f:
+            logged = [json.loads(ln) for ln in f]
+        if not logged or logged[-1]["step"] != QUALITY_STEPS or not all(
+                math.isfinite(v) for r in logged for v in r.values()):
+            raise AssertionError(f"the run's metric rows: {logged[-1:]}")
+
+        # the protocol on both checkpoints, on the card, as users run it
+        reset_launches()
+        t = time.perf_counter()
+        rows = quality_eval.main(["--run_dir", str(tmp / "run"), "--config", cfg_path,
+                                  "--n_eval", str(QUALITY_N_EVAL), "--out",
+                                  str(tmp / "quality")])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+        # per checkpoint: the batches of the set, the no-change batch, the grid's
+        calls = len(steps) * (math.ceil(QUALITY_N_EVAL / BATCH) + 2)
+        want = {k: calls * EXPECTED_LAUNCHES.get(k, 0) for k in kernels.LAUNCHES}
+        if launches != want:
+            raise AssertionError(f"quality_eval launches {launches} != {want}")
+        if [r["step"] for r in rows] != steps or not all(
+                math.isfinite(r[k]) for r in rows for k in
+                ("fid_rel", "is_mean", "attr_transfer_acc", "nochange_recon_l1")):
+            raise AssertionError(f"quality rows {rows}")
+        trend = json.loads((tmp / "quality" / "quality_trend.json").read_text())
+        if trend["results"] != rows or trend["n_eval"] != QUALITY_N_EVAL:
+            raise AssertionError("quality_trend.json does not hold the rows")
+
+        # step 40's EMA generator in fp32 on the card and on the CPU
+        cfg32 = load_config(cfg_path)
+        cfg32.compute_dtype = "float32"
+        held = quality_eval.held_out_set(cfg32, QUALITY_CMP, BATCH)
+        ckpt = torch.load(ckpt_dir / f"ckpt_{QUALITY_STEPS:08d}.pt", map_location="cpu",
+                          weights_only=True)
+        t = time.perf_counter()
+        card_row, card_launches = quality_row_fp32(cfg32, ckpt, held, dev)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu_row, cpu_launches = quality_row_fp32(cfg32, ckpt, held, torch.device("cpu"))
+        cpu_s = time.perf_counter() - t
+    calls = math.ceil(QUALITY_CMP / BATCH) + 1
+    want = {k: calls * EXPECTED_LAUNCHES.get(k, 0) for k in kernels.LAUNCHES}
+    if card_launches != want or any(cpu_launches.values()):
+        raise AssertionError(f"fp32 launches: card {card_launches} (want {want}), "
+                             f"CPU {cpu_launches}")
+    bit_gap = max(abs(a - b) for a, b in zip(card_row["attr_acc_per_bit"],
+                                             cpu_row["attr_acc_per_bit"]))
+    rel = lambda k: abs(card_row[k] - cpu_row[k]) / abs(cpu_row[k])
+    gaps = {"attr_acc_per_bit": bit_gap, "nochange_recon_l1": rel("nochange_recon_l1"),
+            "fid_rel": rel("fid_rel"), "is_mean": rel("is_mean")}
+    log(f"quality: fp32 card vs CPU, step {QUALITY_STEPS}'s EMA generator on "
+        f"{QUALITY_CMP} faces: card {json.dumps(card_row)}; CPU {json.dumps(cpu_row)}; "
+        f"largest gaps: per-bit accuracy {bit_gap:.6f} (bound {QUALITY_BIT_TOL:.6f}), "
+        f"recon L1 {gaps['nochange_recon_l1']:.3e} relative (bound "
+        f"{QUALITY_RECON_RTOL}), fid_rel {gaps['fid_rel']:.3e} relative (bound "
+        f"{QUALITY_FID_RTOL}), is_mean {gaps['is_mean']:.3e} relative (not bound); "
+        f"host s card {card_s:.1f}, CPU {cpu_s:.1f}; card {card}")
+    if bit_gap > QUALITY_BIT_TOL + 1e-12 or gaps["nochange_recon_l1"] > QUALITY_RECON_RTOL \
+            or gaps["fid_rel"] > QUALITY_FID_RTOL:
+        raise AssertionError(f"quality rows card vs CPU apart: {gaps}")
+    wall = time.perf_counter() - t_phase
+    log(f"quality: {QUALITY_STEPS} steps of {QUALITY_NAME} (128 px, bf16, procedural "
+        f"faces) in {train_s:.1f} s, the last logged {logged[-1]['steps_per_sec']:.3f} "
+        f"steps/s; quality_eval over checkpoints {steps} (n_eval {QUALITY_N_EVAL}) in "
+        f"{eval_s:.1f} s on the host, launches {json.dumps(launches)}; rows "
+        f"{json.dumps(rows)}; phase wall time {wall:.1f} s; card {card}")
+    return {"launches": launches, "rows": rows, "gaps": gaps}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3243,6 +3387,7 @@ def main() -> int:
     tensor_parallel = phase_tensor_parallel(card, train_off)
     phase_mesh_subset(card, tensor_parallel)
     phase_native(card)
+    quality = phase_quality(card)
     log("stem_on_vs_off (phases 9-10 against 4 and 7 of this run): serving "
         + json.dumps({"on": serve_on, "off": serve_off}) + "; training "
         + json.dumps({"on": train_on, "off": train_off}))
@@ -3301,6 +3446,8 @@ def main() -> int:
         extra["launches_data_parallel"] = data_parallel["nccl"]["launches"][name]
         extra["launches_tensor_parallel"] = [r["launches"][name]
                                              for r in tensor_parallel["b"]]
+        # phase 19: over quality_eval's two checkpoints
+        extra["launches_quality_eval"] = quality["launches"][name]
         if name in ARITH_ROWS:
             extra["norm_compute_bf16"] = dict(
                 arith_summary(arith["rows"], name, cfg.norm_stats),

@@ -15,7 +15,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "dwcgan_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dwcgan_tpu")
+# `tools`: the JAX repo's scripts (tools/quality_eval.py imports the JAX
+# package)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dwcgan_tpu", "tools")
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -187,6 +189,21 @@ def test_the_scans_cover_the_eval_modules():
     assert (PACKAGE / "eval" / "__init__.py").exists()    # walk_packages finds eval/
 
 
+# the quality protocol and what it runs
+QUALITY_MODULES = ("cli/quality_eval.py", "data/procedural.py", "eval/harness.py",
+                   "eval/inception.py", "utils/images.py", "train/checkpoint.py")
+
+
+def test_the_scans_cover_the_quality_protocol():
+    scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert set(QUALITY_MODULES) <= scanned
+    tree = ast.parse((PACKAGE / "cli" / "quality_eval.py").read_text())
+    roots = {(a.name if isinstance(node, ast.Import) else node.module or "").split(".")[0]
+             for node in ast.walk(tree) if isinstance(node, (ast.Import, ast.ImportFrom))
+             for a in node.names}
+    assert roots & set(FORBIDDEN) == set() and "dwcgan_tpu_torch" in roots
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -266,6 +283,18 @@ def test_evaluate_cli_defaults_to_the_card(no_card, tmp_path):
     # with --device cpu it gets as far as the (missing) checkpoint
     with pytest.raises(FileNotFoundError, match="checkpoint"):
         evaluate.main(argv + ["--device", "cpu"])
+
+
+def test_quality_eval_cli_defaults_to_the_card(no_card, tmp_path):
+    from dwcgan_tpu_torch.cli import quality_eval
+    argv = ["--config", str(ROOT / "configs/smoke.yaml"), "--run_dir", str(tmp_path),
+            "--out", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="cuda"):
+        quality_eval.main(argv)
+    # with --device cpu it gets as far as the (missing) checkpoints
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        quality_eval.main(argv + ["--device", "cpu"])
+    assert not (tmp_path / "out").exists()
 
 
 def test_import_reference_defaults_to_the_card(no_card, tmp_path):
