@@ -86,6 +86,7 @@ from dwcgan_tpu_torch.utils.guard import FiniteGuard, StallWatchdog
 from dwcgan_tpu_torch.utils.html import write_html_gallery
 from dwcgan_tpu_torch.utils.images import save_image_grid
 from dwcgan_tpu_torch.utils.logging import MetricWriter
+from dwcgan_tpu_torch.utils.profiling import span
 from dwcgan_tpu_torch.utils.timer import StepTimer
 
 BATCH_POOL = 8
@@ -127,15 +128,16 @@ def build_trainer(cfg: Config, device="cuda", seed=None, embed_table=None,
     config names none (`build_vgg_loss`); `axis`: the mesh of a parallel
     run (its model axis shards the state)."""
     dev = resolve_device(device)
-    torch.manual_seed(cfg.seed if seed is None else seed)  # anything not given state.rng
-    vocab = Vocab(cfg.dataset)
-    state = create_train_state(cfg, vocab.size, device=dev, seed=seed,
-                               embed_table=embed_table, axis=axis)
-    step_fn = make_train_step(cfg, state.gen, state.dis, state.gen_opt,
-                              state.dis_opt,
-                              vgg_loss_fn=build_vgg_loss(cfg, dev, output_path),
-                              axis=axis)
-    return state, step_fn, vocab
+    with span("setup.build_trainer"):
+        torch.manual_seed(cfg.seed if seed is None else seed)  # anything not given state.rng
+        vocab = Vocab(cfg.dataset)
+        state = create_train_state(cfg, vocab.size, device=dev, seed=seed,
+                                   embed_table=embed_table, axis=axis)
+        step_fn = make_train_step(cfg, state.gen, state.dis, state.gen_opt,
+                                  state.dis_opt,
+                                  vgg_loss_fn=build_vgg_loss(cfg, dev, output_path),
+                                  axis=axis)
+        return state, step_fn, vocab
 
 
 def synthetic_batches(cfg: Config, device, n: int = BATCH_POOL, seed: int = 0):

@@ -42,6 +42,7 @@ from dwcgan_tpu_torch.train.checkpoint import (checkpoint_file,
                                                checkpoint_header,
                                                read_checkpoint)
 from dwcgan_tpu_torch.train.sampler import make_infer_fn
+from dwcgan_tpu_torch.utils.profiling import span
 
 
 def translate_batch(infer, images: np.ndarray, commands: Sequence[str],
@@ -49,11 +50,14 @@ def translate_batch(infer, images: np.ndarray, commands: Sequence[str],
                     device: torch.device) -> torch.Tensor:
     """One served batch: images [N, H, W, 3] float32 in [-1, 1] (host) and N
     commands -> edited images [N, H, W, 3] float32 on `device`."""
-    ids, lens = encode_commands(commands, vocab, max_len)
-    x = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(device)
-    # token ids go to the card; the lengths stay on the host, where the
-    # LSTM reads how many steps to run
-    return infer(x, torch.from_numpy(ids).to(device), torch.from_numpy(lens))
+    with span("translate.batch"):
+        with span("translate.to_device"):
+            ids, lens = encode_commands(commands, vocab, max_len)
+            x = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(device)
+            # token ids go to the card; the lengths stay on the host, where
+            # the LSTM reads how many steps to run
+            txt, lens = torch.from_numpy(ids).to(device), torch.from_numpy(lens)
+        return infer(x, txt, lens)
 
 
 def synthetic_requests(n: int, size: int, seed: int):

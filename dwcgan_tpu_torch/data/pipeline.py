@@ -22,6 +22,7 @@ import torch
 from dwcgan_tpu_torch.data.labels import all_domains
 from dwcgan_tpu_torch.text.synthesis import TextSynthesizer
 from dwcgan_tpu_torch.text.vocab import Vocab, tokens_to_ids
+from dwcgan_tpu_torch.utils.profiling import span
 
 
 class Batch(NamedTuple):
@@ -146,12 +147,16 @@ class DataPipeline:
             want = self.start
             ahead: dict = {}
             while True:
-                while want not in ahead:
-                    seq, item = q.get()
-                    if isinstance(item, Exception):
-                        raise RuntimeError("data pipeline worker failed") from item
-                    ahead[seq] = item
-                yield ahead.pop(want)
+                # the consumer's wait for the next batch in stream order;
+                # `ready`: batches decoded and waiting when it asked
+                with span("data.next", ready=q.qsize() + len(ahead)):
+                    while want not in ahead:
+                        seq, item = q.get()
+                        if isinstance(item, Exception):
+                            raise RuntimeError("data pipeline worker failed") from item
+                        ahead[seq] = item
+                    batch = ahead.pop(want)
+                yield batch
                 want += 1
         finally:
             stop.set()
@@ -174,10 +179,11 @@ def to_device(batch: Batch, device) -> Batch:
     stays on the host, where the LSTM reads how many steps to run (no
     device sync)."""
     dev = torch.device(device)
-    if dev.type == "cuda":
-        b = pin_batch(batch)
-        return Batch(*(t.to(dev, non_blocking=True) for t in b[:4]), b.txt_len)
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
-    return Batch(f32(batch.image), f32(batch.src_label), f32(batch.trg_label),
-                 torch.as_tensor(np.asarray(batch.txt, np.int64)),
-                 torch.as_tensor(np.asarray(batch.txt_len, np.int64)))
+    with span("data.to_device"):
+        if dev.type == "cuda":
+            b = pin_batch(batch)
+            return Batch(*(t.to(dev, non_blocking=True) for t in b[:4]), b.txt_len)
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+        return Batch(f32(batch.image), f32(batch.src_label), f32(batch.trg_label),
+                     torch.as_tensor(np.asarray(batch.txt, np.int64)),
+                     torch.as_tensor(np.asarray(batch.txt_len, np.int64)))

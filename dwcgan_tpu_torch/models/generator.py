@@ -41,6 +41,7 @@ from dwcgan_tpu_torch.ops.blocks import (AdaINResBlocks, Conv2dBlock, MLP,
 from dwcgan_tpu_torch.ops.lstm import MaskedBiLSTM
 from dwcgan_tpu_torch.ops.resize import upsample2x
 from dwcgan_tpu_torch.parallel.tensor import module_group, reduce, split
+from dwcgan_tpu_torch.utils.profiling import span
 
 
 def build_embedding_matrix(vocab, embed_dim: int, pretrained=None,
@@ -295,19 +296,22 @@ class Generator(nn.Module):
         return channels_last(x.permute(0, 3, 1, 2).to(self.dtype))
 
     def encode(self, images, rng=None, rows=None):
-        x = self._nchw(images)
-        mu, logvar = self.enc_style(x, rng, rows)
-        content = self.enc_content(x)
-        return content.permute(0, 2, 3, 1), mu, logvar
+        with span("gen.encode"):
+            x = self._nchw(images)
+            mu, logvar = self.enc_style(x, rng, rows)
+            content = self.enc_content(x)
+            return content.permute(0, 2, 3, 1), mu, logvar
 
     def encode_txt(self, style_flat, tokens, lengths, rng=None, rows=None):
-        return self.enc_txt(style_flat, tokens, lengths, rng, rows)
+        with span("gen.encode_txt"):
+            return self.enc_txt(style_flat, tokens, lengths, rng, rows)
 
     def decode(self, content, style_flat):
-        adain_params = self.mlp(style_flat.to(self.dtype))
-        image, att = self.dec(self._nchw(content), adain_params)
-        return (image.permute(0, 2, 3, 1),
-                None if att is None else att.permute(0, 2, 3, 1))
+        with span("gen.decode"):
+            adain_params = self.mlp(style_flat.to(self.dtype))
+            image, att = self.dec(self._nchw(content), adain_params)
+            return (image.permute(0, 2, 3, 1),
+                    None if att is None else att.permute(0, 2, 3, 1))
 
 
 @torch.no_grad()
@@ -366,13 +370,14 @@ def build_generator(cfg: Config, vocab_size: int, device="cuda",
     `parity_convs` is an XLA rewrite of the same convolution."""
     dev = resolve_device(device)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    gen = Generator(cfg.gen, cfg.input_dim, vocab_size, dtype=dtype,
-                    stats=cfg.norm_stats, stem=bool(cfg.stem_pallas))
-    gen.set_norm_compute(cfg.norm_compute)
-    init_weights(gen, cfg.init, seed)
-    if embed_table is not None:
-        with torch.no_grad():
-            gen.enc_txt.embed_tokens.weight.copy_(torch.from_numpy(
-                np.array(embed_table, np.float32)))
-    freeze_lstm_bias_hh(gen)
-    return gen.to(dev).train(train)
+    with span("setup.build_generator"):
+        gen = Generator(cfg.gen, cfg.input_dim, vocab_size, dtype=dtype,
+                        stats=cfg.norm_stats, stem=bool(cfg.stem_pallas))
+        gen.set_norm_compute(cfg.norm_compute)
+        init_weights(gen, cfg.init, seed)
+        if embed_table is not None:
+            with torch.no_grad():
+                gen.enc_txt.embed_tokens.weight.copy_(torch.from_numpy(
+                    np.array(embed_table, np.float32)))
+        freeze_lstm_bias_hh(gen)
+        return gen.to(dev).train(train)

@@ -27,6 +27,7 @@ from torch import nn
 
 from dwcgan_tpu_torch.ops.blocks import channels_last, conv2d
 from dwcgan_tpu_torch.ops.norms import instance_norm
+from dwcgan_tpu_torch.utils.profiling import span
 
 # (name, out_channels, followed_by_pool)
 LAYERS = (
@@ -108,8 +109,9 @@ def make_vgg_loss_fn(vgg: Vgg16Features, stats: str = "2pass",
     loss's `instance_norm` follows too)."""
 
     def loss_fn(x, y):
-        fx = instance_norm(vgg(vgg_preprocess(x)), stats=stats, arith=arith)
-        fy = instance_norm(vgg(vgg_preprocess(y)), stats=stats, arith=arith)
-        return (fx.float() - fy.float()).square().mean()
+        with span("loss.vgg"):
+            fx = instance_norm(vgg(vgg_preprocess(x)), stats=stats, arith=arith)
+            fy = instance_norm(vgg(vgg_preprocess(y)), stats=stats, arith=arith)
+            return (fx.float() - fy.float()).square().mean()
 
     return loss_fn

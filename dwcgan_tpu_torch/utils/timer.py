@@ -13,23 +13,6 @@ from typing import Optional
 import torch
 
 
-class Timer:
-    """Context manager printing elapsed wall-clock time."""
-
-    def __init__(self, msg: str = "Elapsed time: %f"):
-        self.msg = msg
-        self.elapsed: Optional[float] = None
-
-    def __enter__(self):
-        self._start = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self._start
-        if self.msg:
-            print(self.msg % self.elapsed)
-
-
 class StepTimer:
     """Seconds between laps, with the device synchronized at each."""
 

@@ -299,3 +299,9 @@ def test_profile_dir_writes_a_trace_of_steps_10_to_20(tmp_path, capsys):
         "--profile_dir", str(tmp_path / "prof"))
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
     assert "profiler trace written to" in capsys.readouterr().out
+    # the port's spans land in it: the steps from state.step 10 on (11, 12)
+    with open(tmp_path / "prof" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == "train.step"]
+    assert len(steps) == 2
