@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 4. the slice at flagship width in bf16 (`configs/celeba_faces.yaml`, batch
    32, synthesized commands) through `translate_batch`: launch counts of
    exactly 11 IN, 4 AdaIN+ReLU, 4 AdaIN-residual and 2 LayerNorm per batch,
-   finite output in [-1, 1], images/s and peak memory;
+   and 2 of the text encoder's recurrence (one a layer), finite output in
+   [-1, 1], images/s and peak memory;
 5. backward kernels: each of the three hand-written backward kernels (four
    counters: AdaIN's serves the residual form too) at every shape the
    flagship training step gives it, in fp32 and bf16 and both stats modes,
@@ -51,7 +52,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    rtol 1e-3; prints the CPU step's seconds;
 7. the flagship training step (bf16, batch 16, 1pass, VGG on) through
    `cli/train.py`'s `build_trainer`: exact launches per step (forward IN 24,
-   AdaIN 8, AdaIN-residual 8, LayerNorm 4; backward 23 / 8 / 8 / 4), and
+   AdaIN 8, AdaIN-residual 8, LayerNorm 4, the recurrence 2; backward 23 /
+   8 / 8 / 4, the recurrence 2), and
    per backward site how often the incoming gradient had to be copied into
    the kernels' layout; finite losses, parameters and EMA moved; 3 warm-up
    steps, then 12 steps timed by CUDA events: median, min and max ms per
@@ -78,9 +80,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    stem 4, IN 22, AdaIN 8 / 8, LayerNorm 4; backward stem 4, IN 21, 8 / 8 /
    4), timed as phase 7; then the stem-on and stem-off figures of this run
    side by side;
-11. the bf16 text encoder (`encode_txt`, batch 32) on the card against the
-   CPU's, which rounds as the JAX scan does: within a quarter of the
-   encoder's fp32-vs-bf16 gap; cuDNN's fused bf16 LSTM measured beside it;
+11. the bf16 text encoder (`encode_txt`, batch 32; on the card the
+   recurrence kernels) against the CPU's loop, which rounds as the JAX scan
+   does: within a quarter of the encoder's fp32-vs-bf16 gap; cuDNN's fused
+   bf16 LSTM measured beside it;
 12. the training CLI end to end: `cli/train.py`'s `main` in this process on
    the flagship config (a copy with `log_iter` 1, `image_display_iter` 3,
    `image_save_iter` 6, `snapshot_save_iter` 3) and `--procedural_data
@@ -106,7 +109,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    bit-equal to the folded state (`bias_ih + bias_hh`, `bias_hh` 0); 512
    procedural faces with synthesized commands through the harness's
    per-batch call (`harness.fake_batch`, batch 32): exactly 11 / 4 / 4 / 2
-   launches of rows 1-4 in each batch and no other, fakes finite in [-1,
+   launches of rows 1-4 and 2 of the recurrence in each batch and no
+   other, fakes finite in [-1,
    1]; a random-init InceptionV3 (seed 0) at full width, 4 images card vs
    CPU within 1e-3 of the largest feature and logit (fp32, TF32 off), and
    the same weights through a torchvision-layout `.pth`,
@@ -136,8 +140,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    outputs within 2e-3 of their largest); `AdaINGenV1` (dim 64, 2
    downsamples, 4 resblocks, mlp 256, style 8, LSTM 300 x 2) and `VAEGen`
    (dim 64, 2, 4) at 128 px: 4 images fp32 card vs CPU (phase 3's 2e-3),
-   then bf16 at batch 32 with exactly 11 / 4 / 4 / 2 launches per batch
-   and no other, finite output in [-1, 1], images/s (10 batches after 4)
+   then bf16 at batch 32 with exactly 11 / 4 / 4 / 2 launches per batch,
+   2 of the recurrence (`VAEGen`, which has no text encoder: none), and no
+   other, finite output in [-1, 1], images/s (10 batches after 4)
    and peak memory; the phase's wall time.
 15. data parallel (`parallel/mesh.py`): (a) a one-rank NCCL group in this
    process (`file://` rendezvous) and the flagship bf16 step at batch 16
@@ -184,7 +189,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    within its rtol 2e-4 plus atol 2.5e-4 a step, `state.rng`, the
    replicated parameters and EMA copies bit-equal on both ranks, 46
    shards each; (b) the same two ranks, flagship bf16 at global batch 16:
-   exactly phase 7's launches on each rank, finite losses, 25,446,414
+   exactly phase 7's launches on each rank but the recurrence's (a model
+   axis keeps the text encoder's loop), finite losses, 25,446,414
    parameter elements held (34,341,710 less half of the 17,790,592
    sharded), the collectives of one step (calls, bytes), then, once the
    other processes have left the card, the peak memory and 12 steps
@@ -210,8 +216,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and `--procedural_data` at full width (128 px, bf16), 40 steps: finite
    metric rows, checkpoints 20 and 40; `quality_eval.main` over both on
    the card with `--n_eval 256`: exactly 11 / 4 / 4 / 2 launches of rows
-   1-4 per translated batch (8 of the set, the no-change batch and the
-   grid's, per checkpoint) and no other, finite rows, `quality_trend.json`
+   1-4 and 2 of the recurrence per translated batch (8 of the set, the
+   no-change batch and the grid's, per checkpoint) and no other, finite
+   rows, `quality_trend.json`
    holding them; then step 40's EMA generator in fp32 (TF32 off) on the
    first 128 held-out faces on the card and on the CPU with the same
    `init_random_inception(0)`: every per-bit accuracy within 1/128,
@@ -219,10 +226,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    largest gaps printed, rows 1-4 launched on the card (5 batches' worth)
    and not on the CPU.  Prints the rows and the host seconds of training,
    evaluation and each side of the comparison.
+20. the text encoder's recurrence kernels (`kernels.lstm`, `lstm_bwd`,
+   `csrc/lstm_kernels.cu`), bf16, at the served batch's shape (32 rows, 37
+   steps) and the training step's (16, 25): device ms (CUDA graph) and
+   eager ms per launch, the forward and the backward, beside their bound
+   stated both ways: operations or bytes over the card's peaks, and the
+   sequential floor of `steps` cluster barriers (a cluster of the plan's
+   blocks doing nothing else); the encoder's first layer on the kernel
+   route, in the loop (device ms of its ops in a CUDA graph, eager ms) and
+   in cuDNN's fused bf16 LSTM (the library yardstick, which the port never
+   calls), forward, and forward with backward at the training shape.
+   Also checked, at both shapes: `lstm(save=True)`'s outputs, final h and
+   c, saved gates and c, and `lstm_bwd`'s proj gradient against
+   `recurrence_plain` and `recurrence_plain_bwd` on the same inputs; at the
+   training shape also the first layer's gradients of x, w_ih, w_hh and the
+   biases on the kernel route against the loop's.  In bf16 neither side is
+   held to the other's bits: the kernel is no farther (relative L2) from
+   the fp32 plain version or loop than 1.1 x the bf16 one is.
 
-The last lines are the `kernels` JSON (nine kernels: the four forward
-ones, the instance-norm, AdaIN and LayerNorm backwards, then the stem
-forward and backward; a forward kernel's times and `launches` are per
+The last lines are the `kernels` JSON (eleven kernels: the four forward
+ones, the instance-norm, AdaIN and LayerNorm backwards, the stem forward
+and backward, then phase 20's recurrence forward and backward over the
+text encoder's two layers, with the loop's device ms as `plain_ms`,
+cuDNN's eager ms as `library_ms`, the barriers' `floor_ms` and each
+shape's plan; a forward kernel's times and `launches` are per
 served batch, with `launches_train` its launches per training step and
 `ms_train` / `bound_ms_train` its time and bound per step; the norm
 kernels (rows 1-7, each one cluster kernel per call) with `kernels_per_call`
@@ -290,6 +317,7 @@ from dwcgan_tpu_torch.models.generator import build_generator
 from dwcgan_tpu_torch.models.legacy import build_legacy_generator
 from dwcgan_tpu_torch.ops import blocks, norms, stem
 from dwcgan_tpu_torch.ops.cuda import build, kernels
+from dwcgan_tpu_torch.ops.lstm import recurrence_plain, recurrence_plain_bwd
 from dwcgan_tpu_torch.parallel import rules, tensor
 from dwcgan_tpu_torch.parallel.mesh import DataAxis
 from dwcgan_tpu_torch.text.synthesis import TextSynthesizer
@@ -328,8 +356,11 @@ SITES = (
 )
 EXPECTED_LAUNCHES = {"instance_norm": 11, "adain": 4, "adain_residual": 4,
                      "layer_norm_ref": 2}
+# the text encoder of a served batch: one recurrence launch per LSTM layer
+TXT_LAUNCHES = {"lstm": 2}
 # serving launches no backward kernel
-SERVE_LAUNCHES = {k: EXPECTED_LAUNCHES.get(k, 0) for k in kernels.LAUNCHES}
+SERVE_LAUNCHES = {k: {**EXPECTED_LAUNCHES, **TXT_LAUNCHES}.get(k, 0)
+                  for k in kernels.LAUNCHES}
 # with `stem_pallas` on, both stems are one stem call each and the content
 # stem's instance norm moves into it
 STEM_SERVE_LAUNCHES = {**SERVE_LAUNCHES, "stem_conv7": 2, "instance_norm": 10}
@@ -686,7 +717,10 @@ CLUSTER_BWD = {"instance_norm_bwd": 0, "adain_bwd": 1, "adain_residual_bwd": 1,
 EXPECTED_TRAIN_LAUNCHES = {
     "instance_norm": 24, "adain": 8, "adain_residual": 8, "layer_norm_ref": 4,
     "instance_norm_bwd": 23, "adain_bwd": 8, "adain_residual_bwd": 8,
-    "layer_norm_ref_bwd": 4, "stem_conv7": 0, "stem_conv7_bwd": 0}
+    "layer_norm_ref_bwd": 4, "stem_conv7": 0, "stem_conv7_bwd": 0,
+    "lstm": 2, "lstm_bwd": 2}
+# per step on a model axis, where the text encoder keeps its loop
+TP_TRAIN_LAUNCHES = {**EXPECTED_TRAIN_LAUNCHES, "lstm": 0, "lstm_bwd": 0}
 # per step with `stem_pallas` on: the encoder runs at n and at 3n, two stems
 # each; the content stem's instance norm, forward and backward, moves into
 # the stem at both
@@ -1561,9 +1595,11 @@ CLI_NAME = CONFIG.stem        # the run's name: outputs/<name>, logs/<name>
 CLI_GRIDS = ("train_current", "test_00000006", "train_00000006")
 CLI_RENDERS = 4               # train_current at steps 3 and 6, test and train at 6
 # one grid's forward launches: one encode (the content encoder's 11 instance
-# norms) and three decodes (4 + 4 AdaIN, 2 LayerNorms each)
-RENDER_LAUNCHES = {**{k: 0 for k in kernels.LAUNCHES}, "instance_norm": 11,
-                   "adain": 12, "adain_residual": 12, "layer_norm_ref": 6}
+# norms), one text encode (its 2 recurrence layers) and three decodes (4 + 4
+# AdaIN, 2 LayerNorms each)
+RENDER_LAUNCHES = {**{k: 0 for k in kernels.LAUNCHES}, **TXT_LAUNCHES,
+                   "instance_norm": 11, "adain": 12, "adain_residual": 12,
+                   "layer_norm_ref": 6}
 CLI_NOT_METRICS = {"step", "time", "steps_per_sec", "images_per_sec"}
 
 
@@ -2230,8 +2266,9 @@ def phase_legacy(vocab, card) -> dict:
         y = serve()
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        if launches != SERVE_LAUNCHES:
-            raise AssertionError(f"{kind}: launches {launches} != {SERVE_LAUNCHES}")
+        want = SERVE_LAUNCHES if kind == "AdaINGenV1" else {**SERVE_LAUNCHES, "lstm": 0}
+        if launches != want:
+            raise AssertionError(f"{kind}: launches {launches} != {want}")
         if tuple(y.shape) != imgs.shape or not torch.isfinite(y).all() \
                 or float(y.abs().max()) > 1.0:
             raise AssertionError(f"{kind}: bad output {tuple(y.shape)}, "
@@ -3069,9 +3106,9 @@ def phase_tensor_parallel(card, train_off) -> dict:
     c = tp_check("tp (c) 2x2", [r["c"] for r in both], first(want), first(again), TP_MODEL)
     b = [r["b"] for r in pair]
     for r, run in enumerate(b):
-        if run["launches"] != EXPECTED_TRAIN_LAUNCHES:
+        if run["launches"] != TP_TRAIN_LAUNCHES:
             raise AssertionError(f"tp (b) rank {r}: launches {run['launches']} != "
-                                 f"{EXPECTED_TRAIN_LAUNCHES}")
+                                 f"{TP_TRAIN_LAUNCHES}")
         if not all(math.isfinite(v) for v in run["metrics"].values()):
             raise AssertionError(f"tp (b) rank {r}: non-finite metrics {run['metrics']}")
         if run["held"] != TP_RANK_ELEMS:
@@ -3302,7 +3339,7 @@ def phase_quality(card) -> dict:
         launches = dict(kernels.LAUNCHES)
         # per checkpoint: the batches of the set, the no-change batch, the grid's
         calls = len(steps) * (math.ceil(QUALITY_N_EVAL / BATCH) + 2)
-        want = {k: calls * EXPECTED_LAUNCHES.get(k, 0) for k in kernels.LAUNCHES}
+        want = {k: calls * SERVE_LAUNCHES[k] for k in kernels.LAUNCHES}
         if launches != want:
             raise AssertionError(f"quality_eval launches {launches} != {want}")
         if [r["step"] for r in rows] != steps or not all(
@@ -3326,7 +3363,7 @@ def phase_quality(card) -> dict:
         cpu_row, cpu_launches = quality_row_fp32(cfg32, ckpt, held, torch.device("cpu"))
         cpu_s = time.perf_counter() - t
     calls = math.ceil(QUALITY_CMP / BATCH) + 1
-    want = {k: calls * EXPECTED_LAUNCHES.get(k, 0) for k in kernels.LAUNCHES}
+    want = {k: calls * SERVE_LAUNCHES[k] for k in kernels.LAUNCHES}
     if card_launches != want or any(cpu_launches.values()):
         raise AssertionError(f"fp32 launches: card {card_launches} (want {want}), "
                              f"CPU {cpu_launches}")
@@ -3352,6 +3389,183 @@ def phase_quality(card) -> dict:
         f"{eval_s:.1f} s on the host, launches {json.dumps(launches)}; rows "
         f"{json.dumps(rows)}; phase wall time {wall:.1f} s; card {card}")
     return {"launches": launches, "rows": rows, "gaps": gaps}
+
+
+# ---------------------------------------------------------------- phase 20
+
+# the recurrence at the benchmark's shapes: (what, rows, steps), the served
+# batch's longest command (37 tokens) and the training step's (25)
+LSTM_SHAPES = (("served batch", BATCH, 37), ("training step", 16, 25))
+LSTM_SOURCE = "dwcgan_tpu_torch/csrc/lstm_kernels.cu"
+LSTM_REPLACES = ("no TPU kernel: the counterpart of the lax.scan of "
+                 "dwcgan_tpu/ops/lstm.py:92-154")
+BF16_OPS_PER_S = 989e12    # H100 SXM data sheet, dense bf16
+# bf16 against the plain versions (the card tests' rule): the kernel and
+# the plain version both round at every op, at different points of the
+# recurrent product's sums, so neither is held to the other's bits; each is
+# held to the fp32 plain version on the same inputs, and the kernel may be
+# no more than this many times as far from it (relative L2) as the bf16
+# plain version is
+LSTM_DIST_SHARE = 1.1
+
+
+def rel_dist(a: torch.Tensor, ref: torch.Tensor) -> float:
+    ref = ref.double()
+    return float((a.double() - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def lstm_dists(what: str, got: dict, plain: dict, ref: dict) -> dict:
+    """{name: [the kernel's distance from ref, the bf16 plain version's]};
+    raises where the kernel's is beyond LSTM_DIST_SHARE of the plain's."""
+    dists = {}
+    for name in got:
+        dk, dp = rel_dist(got[name], ref[name]), rel_dist(plain[name], ref[name])
+        if not dk <= LSTM_DIST_SHARE * dp:
+            raise AssertionError(f"lstm {what}: {name} {dk:.3e} from fp32, beyond "
+                                 f"{LSTM_DIST_SHARE} x the bf16 plain version's {dp:.3e}")
+        dists[name] = [dk, dp]
+    return dists
+
+
+def lstm_bound_ms(rows: int, steps: int, hid: int, bwd: bool):
+    """The least time of one launch, in ms, and what sets it: the recurrent
+    product's operations (2 directions x steps x rows x 4H x H multiply-adds)
+    over the bf16 tensor cores' rate, or its bytes over HBM's: the forward
+    reads proj and w_hh once and writes the outputs, h and c; the backward
+    reads the saved gates and c, the outputs' gradient and w_hh and writes
+    proj's gradient (bf16, 2 bytes)."""
+    ops = 2 * 2 * steps * rows * 4 * hid * hid
+    if bwd:
+        elems = (2 * steps * rows * 5 * hid + rows * steps * 2 * hid + 8 * hid * hid
+                 + rows * steps * 8 * hid)
+    else:
+        elems = rows * steps * 8 * hid + 8 * hid * hid + rows * steps * 2 * hid \
+            + 4 * rows * hid
+    by_ops, by_bytes = ops / BF16_OPS_PER_S, 2 * elems / HBM_BYTES_PER_S
+    return 1e3 * max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes"
+
+
+def lstm_checks(m, x: torch.Tensor, lens: torch.Tensor, proj: torch.Tensor,
+                w_hh: torch.Tensor, layer: bool) -> dict:
+    """Phase 20's checks at one shape (x [B, T, D] bf16, lens [B] int64 on
+    the host, proj and w_hh the first layer's, bf16): `kernels.lstm(save=True)`
+    and `kernels.lstm_bwd` against `recurrence_plain` and
+    `recurrence_plain_bwd` (gates and c past a length are not written, so
+    not compared); with `layer`, the layer's gradients on the kernel route
+    against the loop's (x and every trained parameter: `bias_hh` is frozen,
+    `freeze_lstm_bias_hh`).  Returns {"check": ..., "layer_check": ...} of
+    `lstm_dists`; raises on a failure."""
+    dev, (rows, steps) = x.device, x.shape[:2]
+    lens32, lens64 = lens.to(dev, torch.int32), lens.to(dev)
+    valid = (torch.arange(steps, device=dev)[:, None] < lens64[None])[..., None]
+
+    def contract(res, dproj):
+        keep = lambda t: torch.where(valid, t, 0)
+        return dict(zip(("out", "h", "c", "acts", "cs", "dproj"),
+                        [*res[:3], keep(res[3]), keep(res[4]), dproj]))
+    with torch.no_grad():
+        got = kernels.lstm(proj, w_hh, lens32, save=True)
+        grads = [torch.randn_like(t) for t in got[:3]]
+        plain = recurrence_plain(proj, w_hh, lens32, save=True)
+        ref = recurrence_plain(proj.float(), w_hh.float(), lens32, save=True)
+        out = {"check": lstm_dists(
+            f"kernels at {rows} x {steps}",
+            contract(got, kernels.lstm_bwd(w_hh, lens32, got[3], got[4], *grads)),
+            contract(plain, recurrence_plain_bwd(w_hh, lens32, plain[3], plain[4],
+                                                 *grads)),
+            contract(ref, recurrence_plain_bwd(w_hh.float(), lens32, ref[3], ref[4],
+                                               *[g.float() for g in grads])))}
+    if not layer:
+        return out
+
+    def layer_grads(fn, xin):
+        m.zero_grad(set_to_none=True)
+        xg = xin.detach().requires_grad_(True)
+        torch.autograd.backward(list(fn(xg)), [g.to(xg.dtype) for g in grads])
+        return {"x": xg.grad, **{n: p.grad for n, p in m.named_parameters()
+                                 if "_l0" in n and p.requires_grad}}
+    loop = lambda xg: m._layer(xg, lens64, 0, int(lens.min()))
+    out["layer_check"] = lstm_dists(
+        f"layer gradients at {rows} x {steps}",
+        layer_grads(lambda xg: m._layer_kernel(xg, lens32, 0), x),
+        layer_grads(loop, x), layer_grads(loop, x.float()))
+    m.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_lstm(card) -> dict:
+    """Phase 20: the recurrence kernels (`kernels.lstm`, `lstm_bwd`, bf16) at
+    the served batch's and the training step's shapes: device ms (CUDA graph)
+    and eager ms per launch beside the bound both ways (operations or bytes
+    over the card's peaks; the sequential floor of `steps` cluster barriers,
+    timed alone); the text encoder's first layer on the kernel route, in the
+    loop (device ms from a CUDA graph of its ops, eager ms) and in cuDNN's
+    fused bf16 LSTM (`nn.LSTM`, one bidirectional layer on packed input, the
+    library yardstick the port never calls), forward, and at the training
+    shape forward and backward.  Also checks, at each shape: the kernels'
+    outputs, saved gates and c (`save=True`) and proj's gradient against
+    `recurrence_plain` and `recurrence_plain_bwd` on the same inputs, and at
+    the training shape the layer's gradients (x, w_ih, w_hh, the biases) on
+    the kernel route against the loop's, each by LSTM_DIST_SHARE; raises on
+    a failure.  Returns the rows."""
+    torch.manual_seed(SEED)
+    dev = torch.device("cuda")
+    cfg = load_config(str(CONFIG))
+    hid, d_in = cfg.gen.hidden_size, cfg.gen.embed_dim + cfg.gen.num_cls * cfg.c_dim
+    m = build_generator(cfg, 102, device=dev, seed=SEED).enc_txt.lstm
+    cudnn = torch.nn.LSTM(d_in, hid, bidirectional=True, batch_first=True)
+    cudnn.load_state_dict({k: v for k, v in m.state_dict().items() if "_l0" in k})
+    cudnn = cudnn.to(dev, torch.bfloat16)
+    cudnn.flatten_parameters()
+    rows_out = []
+    for what, rows, steps in LSTM_SHAPES:
+        lens = torch.tensor([steps] + [max(1, steps - (7 * i) % 19) for i in range(1, rows)])
+        lens32, lens64, lmin = lens.to(dev, torch.int32), lens.to(dev), int(lens.min())
+        x = torch.randn(rows, steps, d_in, device=dev).bfloat16()
+        plan = kernels.lstm_plan(rows, hid, torch.bfloat16)
+        with torch.no_grad():
+            proj = (x @ torch.cat([m.weight_ih_l0, m.weight_ih_l0_reverse]).bfloat16().t()
+                    + (torch.cat([m.bias_ih_l0, m.bias_ih_l0_reverse])
+                       + torch.cat([m.bias_hh_l0, m.bias_hh_l0_reverse])).bfloat16())
+            w_hh = torch.stack([m.weight_hh_l0, m.weight_hh_l0_reverse]).bfloat16()
+            out, h, c, acts, cs = kernels.lstm(proj, w_hh, lens32, save=True)
+            grads = [torch.randn_like(t) for t in (out, h, c)]
+            fwd = lambda i: kernels.lstm(proj, w_hh, lens32)
+            bwd = lambda i: kernels.lstm_bwd(w_hh, lens32, acts, cs, *grads)
+            loop = lambda i: m._layer(x, lens64, 0, lmin)
+            route = lambda i: m._layer_kernel(x, lens32, 0)
+            packed = lambda: torch.nn.utils.rnn.pack_padded_sequence(
+                x, lens, batch_first=True, enforce_sorted=False)
+            library = lambda i: cudnn(packed())
+            floor = lambda i: kernels.lstm_barriers(plan.k, steps)
+            row = dict(shape=what, rows=rows, steps=steps, k=plan.k, units=plan.units,
+                       smem=plan.smem, smem_bwd=plan.smem_bwd,
+                       ms=device_ms(fwd), eager_ms=time_ms(fwd),
+                       bwd_ms=device_ms(bwd), bwd_eager_ms=time_ms(bwd),
+                       floor_ms=device_ms(floor),
+                       layer_eager_ms=time_ms(route),
+                       loop_ms=device_ms(loop), loop_eager_ms=time_ms(loop),
+                       library_ms=time_ms(library))
+        row.update(lstm_checks(m, x, lens, proj, w_hh, layer=what == "training step"))
+        row["bound_ms"], row["bound_by"] = lstm_bound_ms(rows, steps, hid, False)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = lstm_bound_ms(rows, steps, hid, True)
+
+        def train(fn):
+            def run(i):
+                xg = x.detach().requires_grad_(True)
+                y = fn(xg)
+                torch.autograd.backward([t for t in y if t is not None],
+                                        [torch.ones_like(t) for t in y if t is not None])
+            return time_ms(run)
+        row["train_eager_ms"] = train(lambda xg: m._layer_kernel(xg, lens32, 0))
+        row["train_loop_eager_ms"] = train(lambda xg: m._layer(xg, lens64, 0, lmin))
+        row["train_library_eager_ms"] = train(lambda xg: cudnn(
+            torch.nn.utils.rnn.pack_padded_sequence(xg, lens, batch_first=True,
+                                                    enforce_sorted=False))[1])
+        rows_out.append(row)
+        log("lstm_kernels " + json.dumps(row))
+    log(f"lstm_kernels: bf16, H {hid}, input {d_in}, one layer a launch; card {card}")
+    return {"rows": rows_out}
 
 
 def main() -> int:
@@ -3388,6 +3602,7 @@ def main() -> int:
     phase_mesh_subset(card, tensor_parallel)
     phase_native(card)
     quality = phase_quality(card)
+    lstm = phase_lstm(card)
     log("stem_on_vs_off (phases 9-10 against 4 and 7 of this run): serving "
         + json.dumps({"on": serve_on, "off": serve_off}) + "; training "
         + json.dumps({"on": train_on, "off": train_off}))
@@ -3493,6 +3708,38 @@ def main() -> int:
         "stem_conv7_bwd", "calls_per_step", "training step of 16 with stem_pallas "
         "on, bf16, 1pass", stem_train_launches["stem_conv7_bwd"], {"hmma": hmma}),
         source=STEM_SOURCE))
+    # the recurrence kernels (phase 20), over the text encoder's two layers:
+    # the forward per served batch (and per training step), the backward per
+    # training step; `plain_ms` the loop's device time, `library_ms` cuDNN's
+    serve_row, train_row = lstm["rows"]
+    layers = serve_launches["lstm"]
+    common = lambda name: dict(
+        name=name, route="cuda", source=LSTM_SOURCE, replaces=LSTM_REPLACES,
+        launches_data_parallel=data_parallel["nccl"]["launches"][name],
+        launches_tensor_parallel=[r["launches"][name] for r in tensor_parallel["b"]],
+        plans={r["shape"]: {k: r[k] for k in ("k", "units", "smem", "smem_bwd")}
+               for r in lstm["rows"]},
+        dist_share=max(dk / dp for r in lstm["rows"] for key in ("check", "layer_check")
+                       for dk, dp in r.get(key, {}).values()))
+    summary.append(dict(
+        common("lstm"), launches=layers, launches_train=train_launches["lstm"],
+        per="served batch of 32 (37 steps), bf16, 2 layers",
+        **{k: layers * serve_row[k] for k in ("ms", "eager_ms", "bound_ms", "floor_ms")},
+        bound_by=serve_row["bound_by"], plain_ms=layers * serve_row["loop_ms"],
+        plain_eager_ms=layers * serve_row["loop_eager_ms"],
+        library_ms=layers * serve_row["library_ms"],
+        ms_train=train_launches["lstm"] * train_row["ms"],
+        bound_ms_train=train_launches["lstm"] * train_row["bound_ms"]))
+    summary.append(dict(
+        common("lstm_bwd"), launches=train_launches["lstm_bwd"],
+        per="training step of 16 (25 steps), bf16, 2 layers",
+        **{k: train_launches["lstm_bwd"] * train_row["bwd_" + k]
+           for k in ("ms", "eager_ms", "bound_ms")},
+        bound_by=train_row["bwd_bound_by"],
+        floor_ms=train_launches["lstm_bwd"] * train_row["floor_ms"],
+        train_eager_ms=layers * train_row["train_eager_ms"],
+        train_plain_eager_ms=layers * train_row["train_loop_eager_ms"],
+        train_library_eager_ms=layers * train_row["train_library_eager_ms"]))
     if any(k["launches"] == 0 or k.get("launches_train") == 0 for k in summary):
         raise AssertionError("a kernel of the serving or training path never launched")
     print(json.dumps({"kernels": summary}), flush=True)

@@ -303,7 +303,8 @@ class Generator(nn.Module):
             return content.permute(0, 2, 3, 1), mu, logvar
 
     def encode_txt(self, style_flat, tokens, lengths, rng=None, rows=None):
-        with span("gen.encode_txt"):
+        route = self.enc_txt.lstm.kernel_route(style_flat.device)
+        with span("gen.encode_txt", lstm_kernel=int(route)):
             return self.enc_txt(style_flat, tokens, lengths, rng, rows)
 
     def decode(self, content, style_flat):

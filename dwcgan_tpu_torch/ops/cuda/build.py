@@ -22,7 +22,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = (CSRC / "norm_kernels.cu", CSRC / "stem_kernels.cu")
+SOURCES = (CSRC / "norm_kernels.cu", CSRC / "stem_kernels.cu",
+           CSRC / "lstm_kernels.cu")
 BUILD_DIR = ROOT / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,6 +1,7 @@
 """ctypes wrappers of the hand-written Hopper kernels, forward and
-backward: the norm kernels and the fused 7x7 stem (`stem_conv7`,
-`stem_conv7_bwd`, at the end).
+backward: the norm kernels, the fused 7x7 stem (`stem_conv7`,
+`stem_conv7_bwd`) and the text encoder's bi-LSTM recurrence (`lstm`,
+`lstm_bwd`, at the end).
 
 Each wrapper takes CUDA tensors only: an NCHW activation in channels_last
 memory (NHWC bytes), bf16 or fp32, and fp32 per-channel parameters.  It
@@ -31,9 +32,9 @@ and bf16 data the normalise chain runs in bf16, rounded after every op
 header); the statistics stay fp32, the plans do not change, and fp32 data
 ignores it.
 
-The sources are `dwcgan_tpu_torch/csrc/norm_kernels.cu` and
-`stem_kernels.cu`; the library is built with nvcc at first use
-(`build.py`).
+The sources are `dwcgan_tpu_torch/csrc/norm_kernels.cu`,
+`stem_kernels.cu` and `lstm_kernels.cu`; the library is built with nvcc at
+first use (`build.py`).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from dwcgan_tpu_torch.ops.cuda import build
 LAUNCHES = {"instance_norm": 0, "adain": 0, "adain_residual": 0,
             "layer_norm_ref": 0, "instance_norm_bwd": 0, "adain_bwd": 0,
             "adain_residual_bwd": 0, "layer_norm_ref_bwd": 0,
-            "stem_conv7": 0, "stem_conv7_bwd": 0}
+            "stem_conv7": 0, "stem_conv7_bwd": 0, "lstm": 0, "lstm_bwd": 0}
 ARITH_LAUNCHES = {"instance_norm": 0, "adain": 0, "adain_residual": 0,
                   "instance_norm_bwd": 0, "adain_bwd": 0, "adain_residual_bwd": 0}
 
@@ -91,6 +92,14 @@ _SIGNATURES = {
     # x, w2p, g, stats, gc, dxp, dx, dw, ws, n, h, w, c, dtype, norm_in, relu,
     # pad, dw_blocks, stream
     "dwc_stem_conv7_bwd": [_P] * 9 + [_I] * 9 + [_P],
+    # proj, w_hh, lengths, out, h, c, acts, cs, batch, steps, hidden, dtype,
+    # k, units, rows, stream
+    "dwc_lstm": [_P] * 8 + [_I] * 7 + [_P],
+    # w_hh, lengths, acts, cs, d_out, d_h, d_c, dproj, batch, steps, hidden,
+    # dtype, k, units, rows, stream
+    "dwc_lstm_bwd": [_P] * 8 + [_I] * 7 + [_P],
+    # k, steps, stream
+    "dwc_lstm_barriers": [_I, _I, _P],
 }
 
 
@@ -101,6 +110,9 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    # hidden, units, rows, k, dtype, bwd -> bytes (-1: a layout it refuses)
+    lib.dwc_lstm_smem.argtypes = [_I] * 6
+    lib.dwc_lstm_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -640,3 +652,147 @@ def stem_conv7_bwd(x: torch.Tensor, w2p: torch.Tensor, g: torch.Tensor,
          dw_blocks)
     dw = dw2[:147].view(7, 7, 3, c).permute(3, 2, 0, 1).contiguous()
     return dx, dw, dw2[147].clone()
+
+
+# -------------------------------------------------- the bi-LSTM recurrence
+
+_LSTM_K = {torch.bfloat16: 8, torch.float32: 16}      # blocks a cluster aims at
+_LSTM_ALIGN = {torch.bfloat16: 8, torch.float32: 4}   # units a block: whole 16-byte vectors
+_LSTM_PAIRS = 5     # (row, unit) pairs a thread carries (csrc kPairs)
+_LSTM_MAX_K = 16    # Hopper's non-portable cluster size
+
+
+class LstmPlan(NamedTuple):
+    """How the recurrence kernels lay out one layer (csrc `Geo`): a cluster
+    of k blocks per direction and group of rows, block r owning the hidden
+    units [r * units, (r + 1) * units)."""
+    k: int          # blocks a cluster
+    units: int      # hidden units a block
+    rows: int       # rows a cluster (16 or 32)
+    groups: int     # clusters a direction
+    smem: int       # dynamic shared memory of a forward block, bytes
+    smem_bwd: int   # of a backward block
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def lstm_smem(hidden: int, units: int, rows: int, k: int, bf16: bool):
+    """(forward, backward) shared memory of a block, bytes (csrc
+    `Geo::fwd_smem`, `Geo::bwd_smem`)."""
+    size, nc, gs = (2 if bf16 else 4), 4 * units, 4 * units + 8
+    if bf16:
+        ks = _round_up(hidden, 16) + 8
+        wb = _round_up(hidden, 8) * gs
+    else:
+        ks = _round_up(hidden, 4)
+        ks += 0 if (ks // 4) % 2 else 4
+        wb = nc * _round_up(hidden, 4)
+    fwd = nc * ks * size + 2 * rows * ks * size + rows * gs * 4 + rows * units * size
+    bwd = wb * size + rows * gs * size + 2 * k * rows * units * 4
+    return fwd, bwd
+
+
+def lstm_plan(batch: int, hidden: int, dtype: torch.dtype) -> LstmPlan:
+    """The recurrence's layout for `batch` rows of `hidden` units: about 8
+    blocks a cluster in bf16 (16 in fp32, whose w_hh rows take twice the
+    bytes), each owning a whole number of 16-byte vectors of units; 16 rows
+    a cluster up to 16 rows, else 32 (as many as the thread's pairs hold),
+    and more clusters for more rows.  Raises on a shape it cannot take."""
+    if dtype not in _LSTM_K:
+        raise TypeError(f"lstm_plan: dtype {dtype} not supported (float32 or bfloat16)")
+    if batch < 1 or hidden < 1:
+        raise ValueError(f"lstm_plan: no plan for batch {batch}, hidden {hidden}")
+    units = _round_up(-(-hidden // _LSTM_K[dtype]), _LSTM_ALIGN[dtype])
+    k = -(-hidden // units)
+    rows = 16 if batch <= 16 or 32 * units > _LSTM_PAIRS * _THREADS else 32
+    fwd, bwd = lstm_smem(hidden, units, rows, k, dtype == torch.bfloat16)
+    if k > _LSTM_MAX_K or rows * units > _LSTM_PAIRS * _THREADS \
+            or max(fwd, bwd) > smem_budget(1):
+        raise ValueError(f"lstm_plan: hidden {hidden} in {dtype} does not fit a "
+                         f"cluster ({k} blocks of {units} units, {max(fwd, bwd)} bytes)")
+    return LstmPlan(k, units, rows, -(-batch // rows), fwd, bwd)
+
+
+def _check_lstm(name: str, proj: torch.Tensor, w_hh: torch.Tensor,
+                lengths: torch.Tensor) -> None:
+    """proj [B, steps, 8H] and w_hh [2, 4H, H] contiguous, of one dtype
+    (float32 or bfloat16); lengths int32 [B]; all on one CUDA card."""
+    if proj.dtype not in _DTYPE_CODE or w_hh.dtype != proj.dtype:
+        raise TypeError(f"{name}: dtype {proj.dtype} / {w_hh.dtype} not supported "
+                        "(float32 or bfloat16, the same for proj and w_hh)")
+    if w_hh.dim() != 3 or w_hh.shape[0] != 2 or w_hh.shape[1] != 4 * w_hh.shape[2] \
+            or proj.dim() != 3 or proj.shape[2] != 8 * w_hh.shape[2] \
+            or proj.shape[0] < 1 or proj.shape[1] < 1 \
+            or lengths.dtype != torch.int32 or tuple(lengths.shape) != proj.shape[:1]:
+        raise ValueError(f"{name}: expected proj [B, steps, 8H], w_hh [2, 4H, H] and "
+                         f"int32 lengths [B], got {tuple(proj.shape)}, "
+                         f"{tuple(w_hh.shape)}, {lengths.dtype} {tuple(lengths.shape)}")
+    if not (proj.is_contiguous() and w_hh.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError(f"{name}: proj, w_hh and lengths must be contiguous")
+    for t in (proj, w_hh, lengths):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: the kernel takes CUDA tensors, got {t.device}")
+    if not proj.device == w_hh.device == lengths.device:
+        raise ValueError(f"{name}: proj, w_hh and lengths on different cards")
+
+
+def lstm(proj: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
+         save: bool = False):
+    """One layer's recurrence, both directions, every step, in one launch.
+
+    proj [B, steps, 8H]: the input projection plus bias of each position,
+    direction d's gates (i, f, g, o) at d * 4H, the reverse direction's at
+    the positions of the forward input (the kernel reads each row's valid
+    prefix reversed); w_hh [2, 4H, H] in proj's dtype; lengths int32 [B], each
+    1..steps with one equal to steps (not checked: that would synchronise).
+    Returns (out [B, steps, 2H], zero past each length; h, c [2, B, H]; and
+    with `save` the gate activations [2, steps, B, 4H] and c [2, steps, B,
+    H] of every step for `lstm_bwd`, else None, None)."""
+    name = "lstm"
+    _check_lstm(name, proj, w_hh, lengths)
+    b, steps, _ = proj.shape
+    hid = w_hh.shape[2]
+    plan = lstm_plan(b, hid, proj.dtype)
+    new = lambda *shape: torch.empty(shape, dtype=proj.dtype, device=proj.device)
+    out, h, c = new(b, steps, 2 * hid), new(2, b, hid), new(2, b, hid)
+    acts, cs = (new(2, steps, b, 4 * hid), new(2, steps, b, hid)) if save else (None, None)
+    _run(name, _lib().dwc_lstm, proj.device, proj.data_ptr(), w_hh.data_ptr(),
+         lengths.data_ptr(), out.data_ptr(), h.data_ptr(), c.data_ptr(), _ptr(acts),
+         _ptr(cs), b, steps, hid, _DTYPE_CODE[proj.dtype], plan.k, plan.units,
+         plan.rows)
+    return out, h, c, acts, cs
+
+
+def lstm_bwd(w_hh: torch.Tensor, lengths: torch.Tensor, acts: torch.Tensor,
+             cs: torch.Tensor, d_out=None, d_h=None, d_c=None) -> torch.Tensor:
+    """The gradient of `lstm`'s proj, [B, steps, 8H] (zero past each
+    length), from the forward's w_hh, lengths and saved acts and cs, and the
+    gradients of its outputs (each None for zero)."""
+    name = "lstm_bwd"
+    _, steps, b, g4 = acts.shape
+    hid = g4 // 4
+    dproj = acts.new_empty((b, steps, 8 * hid))
+    _check_lstm(name, dproj, w_hh, lengths)
+    want = {"acts": (acts, (2, steps, b, 4 * hid)), "cs": (cs, (2, steps, b, hid)),
+            "d_out": (d_out, (b, steps, 2 * hid)), "d_h": (d_h, (2, b, hid)),
+            "d_c": (d_c, (2, b, hid))}
+    for key, (t, shape) in want.items():
+        if t is not None and (tuple(t.shape) != shape or t.dtype != acts.dtype
+                              or t.device != acts.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: {key} must be contiguous {acts.dtype} {shape} "
+                             f"on {acts.device}, got {t.dtype} {tuple(t.shape)}")
+    plan = lstm_plan(b, hid, acts.dtype)
+    _run(name, _lib().dwc_lstm_bwd, acts.device, w_hh.data_ptr(), lengths.data_ptr(),
+         acts.data_ptr(), cs.data_ptr(), _ptr(d_out), _ptr(d_h), _ptr(d_c),
+         dproj.data_ptr(), b, steps, hid, _DTYPE_CODE[acts.dtype], plan.k,
+         plan.units, plan.rows)
+    return dproj
+
+
+def lstm_barriers(k: int, steps: int, device=None) -> None:
+    """`steps` cluster barriers of one cluster of k blocks and nothing else:
+    the recurrence's sequential floor, for a measurement (not counted)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    _run("lstm_barriers", _lib().dwc_lstm_barriers, device, k, steps, count=False)

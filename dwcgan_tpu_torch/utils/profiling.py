@@ -29,8 +29,10 @@ The spans of the program:
 - `train.step` (a root) holding `train.g_forward`, `train.d_update` (with
   `train.d_backward` and `train.adam_d`), `train.g_update` (with
   `train.g_backward` and `train.adam_g`) and `train.ema`: `train/step.py`;
-- `gen.encode`, `gen.encode_txt`, `gen.decode`: `models/generator.py`,
-  under whichever span is open; `loss.vgg`: `models/vgg.py`;
+- `gen.encode`, `gen.encode_txt` (count `lstm_kernel`: 1 where the text
+  encoder's recurrence runs as the CUDA kernels, 0 where the loop runs),
+  `gen.decode`: `models/generator.py`, under whichever span is open;
+  `loss.vgg`: `models/vgg.py`;
 - `translate.batch` (a root) holding `translate.to_device`:
   `cli/translate.py::translate_batch`;
 - `setup.build_trainer` (`cli/train.py`), `setup.build_generator`
