@@ -53,11 +53,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 7. the flagship training step (bf16, batch 16, 1pass, VGG on) through
    `cli/train.py`'s `build_trainer`: exact launches per step (forward IN 24,
    AdaIN 8, AdaIN-residual 8, LayerNorm 4, the recurrence 2; backward 23 /
-   8 / 8 / 4, the recurrence 2), and
-   per backward site how often the incoming gradient had to be copied into
-   the kernels' layout; finite losses, parameters and EMA moved; 3 warm-up
-   steps, then 12 steps timed by CUDA events: median, min and max ms per
-   step, images/s, peak memory.
+   8 / 8 / 4, the recurrence 2) on the 4th step, a replay of the step's
+   CUDA graph (`train/step.py::StepGraphs`: the first 4 steps exactly
+   `WARM_STEPS` eager, one capture, the rest replays); then a 5th step,
+   a replay, profiled (`torch.profiler`, as the benchmark's trace reads
+   it): the norm and recurrence kernels it ran on the card, counted by
+   name, must be those launches (forward norm 40, LayerNorm 4, backward
+   39 / 4, the recurrence 2 and 2), and the counters' replayed bookkeeping
+   must say the same; per backward site how often the incoming gradient
+   had to be copied into the kernels' layout, on the first (eager) step;
+   finite losses, parameters and EMA moved; then 12 steps (replays) timed
+   by CUDA events: median, min and max ms per step, images/s, peak memory.
 
 8. stem kernels: the fused 7x7 stem forward and backward at every stem
    site of the stem-on paths (content: IN + ReLU, style: ReLU; [32, 3, 128,
@@ -88,7 +94,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the flagship config (a copy with `log_iter` 1, `image_display_iter` 3,
    `image_save_iter` 6, `snapshot_save_iter` 3) and `--procedural_data
    --procedural_size 512`, 6 steps: exact launches (each step phase 7's,
-   and 4 sample grids of one encode and three decodes each), 6 finite
+   and 4 sample grids of one encode and three decodes each), the step's
+   CUDA graphs taken (one process on one card: `WARM_STEPS` eager steps,
+   one capture, the rest replays, in each run below), 6 finite
    metric rows, checkpoints 3 and 6, the `train_current`, `test_00000006`
    and `train_00000006` grids (5 rows of 8) and `index.html`; step 3's
    checkpoint restored into a fresh trainer bit-equal, tensor by tensor,
@@ -130,8 +138,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    prelu` and `dis.norm: sn` as phase 6 (fp32, batch 2, card vs CPU,
    rtol 1e-3) and as phase 7 (bf16, batch 16: phase 7's exact launches,
    the PReLU slopes and spectral-norm kernels moved, 12 timed steps beside
-   phase 7's median, and the spectral norm's calls per step with their
-   eager and device ms); the penalties through a discriminator with a
+   phase 7's median, and the spectral norm's calls per step, counted on an
+   eager step, with their eager and device ms); the penalties through a discriminator with a
    norm, as phase 6 (`dis.norm: in` with `gp_w 10`, `dis.norm: ln` with R1
    every step: the backward kernels' gradients differentiated again
    through the plain backward, a nonzero penalty on the card); the
@@ -228,21 +236,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    evaluation and each side of the comparison.
 20. the text encoder's recurrence kernels (`kernels.lstm`, `lstm_bwd`,
    `csrc/lstm_kernels.cu`), bf16, at the served batch's shape (32 rows, 37
-   steps) and the training step's (16, 25): device ms (CUDA graph) and
-   eager ms per launch, the forward and the backward, beside their bound
-   stated both ways: operations or bytes over the card's peaks, and the
-   sequential floor of `steps` cluster barriers (a cluster of the plan's
-   blocks doing nothing else); the encoder's first layer on the kernel
-   route, in the loop (device ms of its ops in a CUDA graph, eager ms) and
-   in cuDNN's fused bf16 LSTM (the library yardstick, which the port never
-   calls), forward, and forward with backward at the training shape.
-   Also checked, at both shapes: `lstm(save=True)`'s outputs, final h and
-   c, saved gates and c, and `lstm_bwd`'s proj gradient against
-   `recurrence_plain` and `recurrence_plain_bwd` on the same inputs; at the
-   training shape also the first layer's gradients of x, w_ih, w_hh and the
-   biases on the kernel route against the loop's.  In bf16 neither side is
-   held to the other's bits: the kernel is no farther (relative L2) from
-   the fp32 plain version or loop than 1.1 x the bf16 one is.
+   steps), the eager training step's (16, 25), and the graphed training
+   step's: 82 steps (the text's width) with the longest length 25 at 16
+   rows, and 37 at 40 rows, whose second cluster's rows end by 18: device
+   ms (CUDA graph) and eager ms per launch, the forward and the backward,
+   beside their bound stated both ways: operations or bytes over the
+   card's peaks, and the sequential floor of as many cluster barriers as
+   the longest length (a cluster of the plan's blocks doing nothing else);
+   the encoder's first layer on the kernel route, in the loop (device ms
+   of its ops in a CUDA graph, eager ms) and in cuDNN's fused bf16 LSTM
+   (the library yardstick, which the port never calls), forward, and
+   forward with backward.  Also checked, at every shape:
+   `lstm(save=True)`'s outputs, final h and c, saved gates and c, and
+   `lstm_bwd`'s proj gradient against `recurrence_plain` and
+   `recurrence_plain_bwd` on the same inputs, the outputs and proj's
+   gradient exactly zero past each length; at the training shapes also the
+   first layer's gradients of x, w_ih, w_hh and the biases on the kernel
+   route against the loop's.  In bf16 neither side is held to the other's
+   bits: the kernel is no farther (relative L2) from the fp32 plain
+   version or loop than 1.1 x the bf16 one is.
+21. the training step's CUDA graphs against eager steps: the flagship
+   config through `build_trainer`, fp32 (TF32 off), batch 4, VGG and
+   dropout on, with zero padding, a fixed-order bilinear upsample and
+   `cudnn.deterministic` (the card's reflect-pad and upsample backwards
+   add with atomics, ROADMAP F14); two runs of 6 eager steps must agree
+   bit for bit, and a run of `WARM_STEPS` eager steps, a capture and
+   replays must match them bit for bit: the nets, EMA copies, Adam's
+   moments and counts, the step, the generator's state and every step's
+   metrics.
 
 The last lines are the `kernels` JSON (eleven kernels: the four forward
 ones, the instance-norm, AdaIN and LayerNorm backwards, the stem forward
@@ -313,6 +334,7 @@ from dwcgan_tpu_torch.eval.inception import (InceptionV3, fp32_precision,
                                              preprocess_for_inception)
 from dwcgan_tpu_torch.eval.metrics import feature_stats, fid_from_stats
 from dwcgan_tpu_torch.models.discriminator import build_discriminator
+from dwcgan_tpu_torch.models import generator as generator_module
 from dwcgan_tpu_torch.models.generator import build_generator
 from dwcgan_tpu_torch.models.legacy import build_legacy_generator
 from dwcgan_tpu_torch.ops import blocks, norms, stem
@@ -328,6 +350,7 @@ from dwcgan_tpu_torch.train.sampler import make_infer_fn, make_sample_fn
 from dwcgan_tpu_torch.train.sampling import blend_attention
 from dwcgan_tpu_torch.train import step as step_module
 from dwcgan_tpu_torch.train.step import make_train_step
+from port_bench.yardstick.trace import profile_slice
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "celeba_faces.yaml"
@@ -739,6 +762,32 @@ BWD_FP32_REL = 1e-4   # fp32: of each gradient's largest magnitude
 BWD_BF16_REL = 2e-2   # bf16: dx rounds to bf16 (2^-9 relative) on top
 STEP_RTOL = 1e-3      # fp32 training step, card vs CPU
 TIMED_STEPS = 12
+
+
+# the hand-written kernels a training step launches, by the name the
+# profiler gives them, and the launch counters each one serves
+PROFILED_KERNELS = {
+    "norm_fwd_cluster_kernel": ("instance_norm", "adain", "adain_residual"),
+    "ln_fwd_cluster_kernel": ("layer_norm_ref",),
+    "norm_bwd_cluster_kernel": ("instance_norm_bwd", "adain_bwd", "adain_residual_bwd"),
+    "ln_bwd_cluster_kernel": ("layer_norm_ref_bwd",),
+    "lstm_fwd_kernel": ("lstm",),
+    "lstm_bwd_kernel": ("lstm_bwd",)}
+
+
+def by_kernel(launches) -> dict:
+    """Launch counts by counter -> by PROFILED_KERNELS' names."""
+    return {name: sum(launches[c] for c in counters)
+            for name, counters in PROFILED_KERNELS.items()}
+
+
+def profiled_launches(fn) -> dict:
+    """The launches of PROFILED_KERNELS that one call of `fn` made on the
+    card, counted by name in a profile of it (`torch.profiler`, as the
+    benchmark's trace reads it: a CUDA graph's kernel nodes included)."""
+    ran = profile_slice(fn, 1)["kernels"]
+    return {name: sum(n for k, (n, _) in ran.items() if name in k)
+            for name in PROFILED_KERNELS}
 
 
 def run_bwd(counter, x, gr, st, params, relu, plan=None, arith=False):
@@ -1465,23 +1514,38 @@ def phase_train_bf16(card, stem=False, options=False, norm_compute="fp32"):
     gen0 = [p.detach().clone() for p in state.gen.parameters()]
     opt0 = option_params(state) if options else None
     ema0 = [p.detach().clone() for p in state.ema_gen.parameters()]
+    graph0 = dict(step_module.GRAPH_STEPS)
     for i in range(3):
+        if i == 0:
+            norms.GRAD_COPIES.clear()
         step(state, batches[i % len(batches)])
+        if i == 0:          # an eager step: its Python ran
+            copies = dict(norms.GRAD_COPIES)
     torch.cuda.synchronize()
     reset_launches()
-    norms.GRAD_COPIES.clear()
     m = step(state, batches[3 % len(batches)])
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     check_arith_launches(launches, norm_compute)
     metrics = {k: float(v) for k, v in m.items()}
+    graph_steps, want_graph = graph_steps_since(graph0), graph_steps_of(4)
+    # one more step (a replay), profiled: the kernels it ran on the card
+    reset_launches()
+    ran = profiled_launches(lambda: step(state, batches[4 % len(batches)]))
     log(f"train_bf16: stem_pallas {stem}, {cfg.compute_dtype}, norm_stats "
         f"{cfg.norm_stats}, batch {cfg.batch_size}, vgg_w {cfg.vgg_w}, launches "
-        f"per step {launches}; incoming gradients copied into the kernels' "
-        "layout and dtype, per site [backward calls, copies]: "
-        + json.dumps(norms.GRAD_COPIES))
+        f"per step {launches}; graphed steps of the first 4 {graph_steps}; the "
+        f"5th step (a replay) profiled, its kernels by name {ran}; incoming "
+        "gradients copied into the kernels' layout and dtype on the first "
+        "(eager) step, per site [backward calls, copies]: " + json.dumps(copies))
     if launches != expected:
         raise AssertionError(f"launches {launches} != {expected}")
+    if graph_steps != want_graph:
+        raise AssertionError(f"graphed steps {graph_steps} != {want_graph}")
+    if ran != by_kernel(expected) or kernels.LAUNCHES != launches:
+        raise AssertionError(f"a replay ran {ran} of the hand-written kernels, not "
+                             f"{by_kernel(expected)}; its counters {kernels.LAUNCHES}, "
+                             f"the step before {launches}")
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite metrics {metrics}")
     moved = lambda now, before: max(float((a.detach() - b).abs().max())
@@ -1508,7 +1572,7 @@ def phase_train_bf16(card, stem=False, options=False, norm_compute="fp32"):
     timing = dict(median_ms=med, min_ms=ev[0], max_ms=ev[-1],
                   images_per_s=cfg.batch_size / (med / 1e3), peak_mib=peak / 2**20)
     if options:
-        timing.update(spectral_norm_share(state, step, batches[0]))
+        timing.update(spectral_norm_share(cfg, state, step, batches[0]))
     log(f"train_bf16: stem_pallas {stem}, block options {bool(options)}, "
         f"norm_compute {norm_compute}, {TIMED_STEPS} steps of batch "
         f"{cfg.batch_size} after 4: CUDA-event ms per step median {med:.3f}, "
@@ -1660,6 +1724,19 @@ class StepProbe:
         return [a.elapsed_time(b) for a, b in self.events]
 
 
+def graph_steps_since(before: dict) -> dict:
+    """The training step's captures, replays and eager steps since `before`
+    (a copy of `GRAPH_STEPS`)."""
+    return {k: step_module.GRAPH_STEPS[k] - before[k] for k in before}
+
+
+def graph_steps_of(steps: int) -> dict:
+    """What a run of `steps` steps of one key counts: `WARM_STEPS` eager
+    steps, one capture, and a replay for every later step."""
+    warm = step_module.WARM_STEPS
+    return {"capture": 1, "replay": steps - warm, "eager": warm}
+
+
 def cli_config(tmp: Path) -> str:
     """A copy of the flagship config, under its own name, with the 6-step
     run's cadences."""
@@ -1749,8 +1826,14 @@ def phase_train_cli(card, train_off):
         # the run, 6 steps, the state after step 3 kept in memory
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
+        graph0 = dict(step_module.GRAPH_STEPS)
         state_a, rows_a, probe_a, secs_a = run_cli(cfg_path, tmp / "a", keep=3)
         launches = dict(kernels.LAUNCHES)
+        # one process on one card: the CLI's step takes the CUDA graphs
+        graphed = {"a": graph_steps_since(graph0)}
+        if graphed["a"] != graph_steps_of(CLI_STEPS):
+            raise AssertionError(f"graphed steps of the run {graphed['a']} != "
+                                 f"{graph_steps_of(CLI_STEPS)}")
         want = {k: CLI_STEPS * EXPECTED_TRAIN_LAUNCHES[k] + CLI_RENDERS * RENDER_LAUNCHES[k]
                 for k in kernels.LAUNCHES}
         if launches != want or any(l != EXPECTED_TRAIN_LAUNCHES for l in probe_a.launches):
@@ -1802,8 +1885,15 @@ def phase_train_cli(card, train_off):
         ckpts_b = tmp / "b" / "outputs" / CLI_NAME / "checkpoints"
         ckpts_b.mkdir(parents=True)
         shutil.copy(out / "checkpoints" / "ckpt_00000003.pt", ckpts_b)
+        graph0 = dict(step_module.GRAPH_STEPS)
         rows_b = run_cli(cfg_path, tmp / "b", "--resume", "1")[1]
+        graphed["b"] = graph_steps_since(graph0)
+        graph0 = dict(step_module.GRAPH_STEPS)
         rows_c = run_cli(cfg_path, tmp / "c")[1]
+        graphed["c"] = graph_steps_since(graph0)
+        want = {"b": graph_steps_of(CLI_STEPS - 3), "c": graph_steps_of(CLI_STEPS)}
+        if any(graphed[k] != want[k] for k in want):
+            raise AssertionError(f"graphed steps {graphed}, not {want} in b and c")
         shutil.rmtree(tmp / "c")
         resumed, *resumed_max = metric_diff(rows_a[3:], rows_b)
         repeat, *repeat_max = metric_diff(rows_a[3:], rows_c[3:])
@@ -1839,7 +1929,8 @@ def phase_train_cli(card, train_off):
     log(f"train_cli: {CLI_STEPS} steps of {cfg_path.split('/')[-1]} ({cfg.compute_dtype}, "
         f"batch {cfg.batch_size}, {cfg.image_size} px) through cli/train.py on "
         f"--procedural_data {CLI_PROCEDURAL}: launches {launches} (per step "
-        f"{EXPECTED_TRAIN_LAUNCHES}, per grid {RENDER_LAUNCHES}); 6 metric rows, "
+        f"{EXPECTED_TRAIN_LAUNCHES}, per grid {RENDER_LAUNCHES}); graphed steps of "
+        f"the run, the resumed run and the second run {graphed}; 6 metric rows, "
         f"checkpoints 3 and 6, grids {CLI_GRIDS} and index.html; step 3 restored "
         f"into a fresh trainer bit-equal in all {n_tensors} tensors; steps 4-6 "
         f"resumed vs the run: mean relative metric diff {resumed:.3e} (largest "
@@ -2116,9 +2207,9 @@ def option_params_moved(state, before: dict) -> None:
         raise AssertionError(f"option parameters that did not move: {still}")
 
 
-def spectral_norm_share(state, step, batch) -> dict:
-    """How often one step computes a spectral norm (one more step, with
-    `spectral_sigma` counting its calls), and those calls' time: each
+def spectral_norm_share(cfg, state, step, batch) -> dict:
+    """How often one step computes a spectral norm (one more step, eager,
+    with `spectral_sigma` counting its calls), and those calls' time: each
     matrix's sigma (30 power iterations, then v . (W u)) timed alone, eager
     (as the step issues it) and on the device (CUDA graph), summed over
     the step's calls."""
@@ -2131,10 +2222,15 @@ def spectral_norm_share(state, step, batch) -> dict:
 
     blocks.spectral_sigma = counting
     try:
-        step(state, batch)
+        # an eager step (given its draws, as phase 6's): a replay runs no Python
+        draws = {k: v.to("cuda") for k, v in
+                 _draws(cfg, batch.image.shape[0], SEED + 40).items()}
+        step(state, batch, draws=draws)
     finally:
         blocks.spectral_sigma = orig
     torch.cuda.synchronize()
+    if not calls:
+        raise AssertionError("the step computed no spectral norm")
     g = torch.Generator(device="cuda").manual_seed(SEED + 41)
     eager = device = 0.0
     shapes = {}
@@ -3393,9 +3489,16 @@ def phase_quality(card) -> dict:
 
 # ---------------------------------------------------------------- phase 20
 
-# the recurrence at the benchmark's shapes: (what, rows, steps), the served
-# batch's longest command (37 tokens) and the training step's (25)
-LSTM_SHAPES = (("served batch", BATCH, 37), ("training step", 16, 25))
+# the recurrence at the benchmark's shapes: (what, rows, steps, longest
+# length), the served batch's longest command (37 tokens) and the training
+# step's (25), cut to it on the host; and the graphed training step's,
+# padded to the text's width (82) with its lengths on the card, where each
+# cluster stops at its own rows' longest length: at 16 rows, and at 40 (two
+# clusters of 32 and 8 rows, the second's rows ending earlier)
+LSTM_SHAPES = (("served batch", BATCH, 37, 37), ("training step", 16, 25, 25),
+               ("graphed training step", 16, 82, 25),
+               ("graphed, two clusters", 40, 82, 37))
+LSTM_CLUSTER_ROWS = 32     # rows of a bf16 cluster past 16 rows (`lstm_plan`)
 LSTM_SOURCE = "dwcgan_tpu_torch/csrc/lstm_kernels.cu"
 LSTM_REPLACES = ("no TPU kernel: the counterpart of the lax.scan of "
                  "dwcgan_tpu/ops/lstm.py:92-154")
@@ -3445,19 +3548,31 @@ def lstm_bound_ms(rows: int, steps: int, hid: int, bwd: bool):
     return 1e3 * max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes"
 
 
+def lstm_lengths(rows: int, longest: int) -> torch.Tensor:
+    """Row 0 at `longest`, the others spread below it; rows past the first
+    cluster at half their length, so that their cluster stops earlier."""
+    lens = [longest] + [max(1, longest - (7 * i) % 19) for i in range(1, rows)]
+    return torch.tensor([n if i < LSTM_CLUSTER_ROWS else max(1, n // 2)
+                         for i, n in enumerate(lens)])
+
+
 def lstm_checks(m, x: torch.Tensor, lens: torch.Tensor, proj: torch.Tensor,
                 w_hh: torch.Tensor, layer: bool) -> dict:
     """Phase 20's checks at one shape (x [B, T, D] bf16, lens [B] int64 on
-    the host, proj and w_hh the first layer's, bf16): `kernels.lstm(save=True)`
+    the host, proj and w_hh the first layer's, bf16; T may exceed the
+    longest length, as the graphed step pads it): `kernels.lstm(save=True)`
     and `kernels.lstm_bwd` against `recurrence_plain` and
     `recurrence_plain_bwd` (gates and c past a length are not written, so
-    not compared); with `layer`, the layer's gradients on the kernel route
-    against the loop's (x and every trained parameter: `bias_hh` is frozen,
-    `freeze_lstm_bias_hh`).  Returns {"check": ..., "layer_check": ...} of
-    `lstm_dists`; raises on a failure."""
+    not compared), and the kernels' out and proj's gradient exactly zero
+    past each row's length (so past the longest); with `layer`, the layer's
+    gradients on the kernel route against the loop's (x and every trained
+    parameter: `bias_hh` is frozen, `freeze_lstm_bias_hh`).  Returns
+    {"check": ..., "layer_check": ...} of `lstm_dists`; raises on a
+    failure."""
     dev, (rows, steps) = x.device, x.shape[:2]
     lens32, lens64 = lens.to(dev, torch.int32), lens.to(dev)
     valid = (torch.arange(steps, device=dev)[:, None] < lens64[None])[..., None]
+    past = ~valid.transpose(0, 1)                                 # [B, T, 1]
 
     def contract(res, dproj):
         keep = lambda t: torch.where(valid, t, 0)
@@ -3468,9 +3583,13 @@ def lstm_checks(m, x: torch.Tensor, lens: torch.Tensor, proj: torch.Tensor,
         grads = [torch.randn_like(t) for t in got[:3]]
         plain = recurrence_plain(proj, w_hh, lens32, save=True)
         ref = recurrence_plain(proj.float(), w_hh.float(), lens32, save=True)
+        mine = contract(got, kernels.lstm_bwd(w_hh, lens32, got[3], got[4], *grads))
+        for name in ("out", "dproj"):
+            if torch.where(past, mine[name], 0).any():
+                raise AssertionError(f"lstm kernels at {rows} x {steps}: {name} is "
+                                     "not zero past a length")
         out = {"check": lstm_dists(
-            f"kernels at {rows} x {steps}",
-            contract(got, kernels.lstm_bwd(w_hh, lens32, got[3], got[4], *grads)),
+            f"kernels at {rows} x {steps}", mine,
             contract(plain, recurrence_plain_bwd(w_hh, lens32, plain[3], plain[4],
                                                  *grads)),
             contract(ref, recurrence_plain_bwd(w_hh.float(), lens32, ref[3], ref[4],
@@ -3495,19 +3614,20 @@ def lstm_checks(m, x: torch.Tensor, lens: torch.Tensor, proj: torch.Tensor,
 
 def phase_lstm(card) -> dict:
     """Phase 20: the recurrence kernels (`kernels.lstm`, `lstm_bwd`, bf16) at
-    the served batch's and the training step's shapes: device ms (CUDA graph)
-    and eager ms per launch beside the bound both ways (operations or bytes
-    over the card's peaks; the sequential floor of `steps` cluster barriers,
-    timed alone); the text encoder's first layer on the kernel route, in the
-    loop (device ms from a CUDA graph of its ops, eager ms) and in cuDNN's
-    fused bf16 LSTM (`nn.LSTM`, one bidirectional layer on packed input, the
-    library yardstick the port never calls), forward, and at the training
-    shape forward and backward.  Also checks, at each shape: the kernels'
-    outputs, saved gates and c (`save=True`) and proj's gradient against
-    `recurrence_plain` and `recurrence_plain_bwd` on the same inputs, and at
-    the training shape the layer's gradients (x, w_ih, w_hh, the biases) on
-    the kernel route against the loop's, each by LSTM_DIST_SHARE; raises on
-    a failure.  Returns the rows."""
+    LSTM_SHAPES: device ms (CUDA graph) and eager ms per launch beside the
+    bound both ways (operations or bytes over the card's peaks, of the work
+    to the longest length; the sequential floor of that many cluster
+    barriers, timed alone); the text encoder's first layer on the kernel
+    route, in the loop (device ms from a CUDA graph of its ops, eager ms)
+    and in cuDNN's fused bf16 LSTM (`nn.LSTM`, one bidirectional layer on
+    packed input, the library yardstick the port never calls), forward, and
+    forward and backward.  Also checks, at each shape: the kernels' outputs,
+    saved gates and c (`save=True`) and proj's gradient against
+    `recurrence_plain` and `recurrence_plain_bwd` on the same inputs, out
+    and proj's gradient zero past each length, and at the training shapes
+    the layer's gradients (x, w_ih, w_hh, the biases) on the kernel route
+    against the loop's, each by LSTM_DIST_SHARE; raises on a failure.
+    Returns the rows."""
     torch.manual_seed(SEED)
     dev = torch.device("cuda")
     cfg = load_config(str(CONFIG))
@@ -3518,8 +3638,8 @@ def phase_lstm(card) -> dict:
     cudnn = cudnn.to(dev, torch.bfloat16)
     cudnn.flatten_parameters()
     rows_out = []
-    for what, rows, steps in LSTM_SHAPES:
-        lens = torch.tensor([steps] + [max(1, steps - (7 * i) % 19) for i in range(1, rows)])
+    for what, rows, steps, longest in LSTM_SHAPES:
+        lens = lstm_lengths(rows, longest)
         lens32, lens64, lmin = lens.to(dev, torch.int32), lens.to(dev), int(lens.min())
         x = torch.randn(rows, steps, d_in, device=dev).bfloat16()
         plan = kernels.lstm_plan(rows, hid, torch.bfloat16)
@@ -3537,8 +3657,9 @@ def phase_lstm(card) -> dict:
             packed = lambda: torch.nn.utils.rnn.pack_padded_sequence(
                 x, lens, batch_first=True, enforce_sorted=False)
             library = lambda i: cudnn(packed())
-            floor = lambda i: kernels.lstm_barriers(plan.k, steps)
-            row = dict(shape=what, rows=rows, steps=steps, k=plan.k, units=plan.units,
+            floor = lambda i: kernels.lstm_barriers(plan.k, longest)
+            row = dict(shape=what, rows=rows, steps=steps, longest=longest, k=plan.k,
+                       units=plan.units,
                        smem=plan.smem, smem_bwd=plan.smem_bwd,
                        ms=device_ms(fwd), eager_ms=time_ms(fwd),
                        bwd_ms=device_ms(bwd), bwd_eager_ms=time_ms(bwd),
@@ -3546,9 +3667,11 @@ def phase_lstm(card) -> dict:
                        layer_eager_ms=time_ms(route),
                        loop_ms=device_ms(loop), loop_eager_ms=time_ms(loop),
                        library_ms=time_ms(library))
-        row.update(lstm_checks(m, x, lens, proj, w_hh, layer=what == "training step"))
-        row["bound_ms"], row["bound_by"] = lstm_bound_ms(rows, steps, hid, False)
-        row["bwd_bound_ms"], row["bwd_bound_by"] = lstm_bound_ms(rows, steps, hid, True)
+        row.update(lstm_checks(m, x, lens, proj, w_hh, layer=what != "served batch"))
+        # the bound of the work to the longest length (a padded call's
+        # zeros past it left out)
+        row["bound_ms"], row["bound_by"] = lstm_bound_ms(rows, longest, hid, False)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = lstm_bound_ms(rows, longest, hid, True)
 
         def train(fn):
             def run(i):
@@ -3566,6 +3689,110 @@ def phase_lstm(card) -> dict:
         log("lstm_kernels " + json.dumps(row))
     log(f"lstm_kernels: bf16, H {hid}, input {d_in}, one layer a launch; card {card}")
     return {"rows": rows_out}
+
+
+# ---------------------------------------------------------------- phase 21
+
+GRAPH_CHECK_STEPS = 6       # WARM_STEPS eager, a capture, and replays
+
+
+def _upsample2x_fixed_order(x: torch.Tensor) -> torch.Tensor:
+    """`ops/resize.py::upsample2x` (bilinear 2x, half-pixel centres, fp32)
+    from slices, products and sums, whose backwards add in a fixed order:
+    each output is 0.75 of its nearest input and 0.25 of the next one out,
+    clamped at the edges (as `tests/test_torch_step_graph.py` has it)."""
+    def up(t, dim):
+        n = t.shape[dim]
+        prev = torch.cat([t.narrow(dim, 0, 1), t.narrow(dim, 0, n - 1)], dim)
+        nxt = torch.cat([t.narrow(dim, 1, n - 1), t.narrow(dim, n - 1, 1)], dim)
+        pair = torch.stack([0.75 * t + 0.25 * prev, 0.75 * t + 0.25 * nxt], dim + 1)
+        return pair.flatten(dim, dim + 1)
+    return blocks.channels_last(up(up(x.float(), 2), 3).to(x.dtype))
+
+
+def graph_check_run(cfg, warm: int):
+    """GRAPH_CHECK_STEPS steps of `build_trainer`'s step from seeded
+    weights on seeded batches, each key captured after `warm` eager steps:
+    (every tensor of the state, each step's metrics, the graphed steps)."""
+    old = step_module.WARM_STEPS
+    step_module.WARM_STEPS = warm
+    try:
+        state, step, _ = build_trainer(cfg, "cuda", seed=SEED)
+        batches = synthetic_batches(cfg, "cuda", n=3, seed=SEED + 50)
+        graph0 = dict(step_module.GRAPH_STEPS)
+        metrics = []
+        for i in range(GRAPH_CHECK_STEPS):
+            m = step(state, batches[i % len(batches)])
+            metrics.append({k: v.clone() if torch.is_tensor(v) else v
+                            for k, v in m.items()})
+        torch.cuda.synchronize()
+        return state_tensors(state), metrics, graph_steps_since(graph0)
+    finally:
+        step_module.WARM_STEPS = old
+
+
+def differences(a: dict, b: dict) -> list:
+    """The keys of two dicts of tensors and numbers that are not bit-equal
+    (dtype and device included)."""
+    def same(x, y):
+        if not torch.is_tensor(x):
+            return x == y
+        return (torch.is_tensor(y) and x.dtype == y.dtype and x.device == y.device
+                and torch.equal(x, y))
+    if a.keys() != b.keys():
+        return sorted(a.keys() ^ b.keys())
+    return [k for k in a if not same(a[k], b[k])]
+
+
+def phase_step_graph(card) -> dict:
+    """Phase 21: the flagship training step's CUDA graphs against eager
+    steps, through `build_trainer`, fp32 (TF32 off), batch 4, VGG on,
+    dropout on.  Two eager runs on the card repeat bit for bit only without
+    the backwards that add with atomics (ROADMAP F14) and with cuDNN held
+    to its deterministic algorithms, so both nets pad with zeros, the
+    generator upsamples through `_upsample2x_fixed_order` and
+    `cudnn.deterministic` is set; two runs of only eager steps must then
+    agree bit for bit (the precondition), and a run of WARM_STEPS eager
+    steps, a capture and replays from the same weights, batches and
+    generator seed must match them bit for bit: the nets, the EMA copies,
+    Adam's moments and counts, the step, the generator's state and every
+    step's metrics.  Raises on any difference."""
+    cfg = load_config(str(CONFIG))
+    cfg.compute_dtype, cfg.batch_size = "float32", 4
+    cfg.gen.pad_type = cfg.dis.pad_type = "zero"
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, generator_module.upsample2x)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    generator_module.upsample2x = _upsample2x_fixed_order
+    t0 = time.perf_counter()
+    try:
+        eager = graph_check_run(cfg, warm=10 ** 9)
+        again = graph_check_run(cfg, warm=10 ** 9)
+        graphed = graph_check_run(cfg, warm=step_module.WARM_STEPS)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic, generator_module.upsample2x) = saved
+    secs = time.perf_counter() - t0
+    if eager[2] != {"capture": 0, "replay": 0, "eager": GRAPH_CHECK_STEPS} \
+            or graphed[2] != graph_steps_of(GRAPH_CHECK_STEPS):
+        raise AssertionError(f"graphed steps: eager runs {eager[2]}, the graphed "
+                             f"run {graphed[2]}")
+    for what, run in (("a second eager run", again), ("the graphed run", graphed)):
+        bad = differences(run[0], eager[0])
+        bad += [f"step {i + 1} {k}" for i, (a, b) in enumerate(zip(run[1], eager[1]))
+                for k in differences(a, b)]
+        if bad:
+            raise AssertionError(f"step_graph: {what} differs from the eager run in "
+                                 f"{len(bad)} tensors or metrics: {bad[:8]}")
+    result = dict(tensors=len(eager[0]), steps=GRAPH_CHECK_STEPS, graphed=graphed[2],
+                  seconds=secs)
+    log(f"step_graph: flagship fp32, batch 4, zero padding, cudnn deterministic, "
+        f"fixed-order upsample: two eager runs of {GRAPH_CHECK_STEPS} steps bit-equal, "
+        f"and the graphed run ({graphed[2]}) bit-equal to them in all "
+        f"{len(eager[0])} state tensors and every step's metrics; {secs:.1f} s; "
+        f"card {card}")
+    return result
 
 
 def main() -> int:
@@ -3603,6 +3830,7 @@ def main() -> int:
     phase_native(card)
     quality = phase_quality(card)
     lstm = phase_lstm(card)
+    phase_step_graph(card)
     log("stem_on_vs_off (phases 9-10 against 4 and 7 of this run): serving "
         + json.dumps({"on": serve_on, "off": serve_off}) + "; training "
         + json.dumps({"on": train_on, "off": train_off}))
@@ -3711,7 +3939,7 @@ def main() -> int:
     # the recurrence kernels (phase 20), over the text encoder's two layers:
     # the forward per served batch (and per training step), the backward per
     # training step; `plain_ms` the loop's device time, `library_ms` cuDNN's
-    serve_row, train_row = lstm["rows"]
+    serve_row, train_row = lstm["rows"][:2]
     layers = serve_launches["lstm"]
     common = lambda name: dict(
         name=name, route="cuda", source=LSTM_SOURCE, replaces=LSTM_REPLACES,

@@ -57,6 +57,12 @@
 //     (step, row) outside, each summed in fp32 and rounded once.
 //   - No atomics: every sum is taken in a fixed order, so two runs are
 //     bit-equal.
+//   - `steps` is the tensors' time extent, an upper bound: each cluster
+//     reads its rows' lengths on the card and runs to the longest of them,
+//     and zeroes its outputs (the backward: its gate gradients) past it.
+//     A caller that cannot read the lengths on the host (a CUDA graph of the
+//     training step, which passes the text's full width) pays for the
+//     padded steps only that zeroing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,6 +157,16 @@ template <typename T> __device__ __forceinline__ float tanh_grad(float g, float 
 template <> __device__ __forceinline__ float tanh_grad<__nv_bfloat16>(float g, float y) {
   using B = __nv_bfloat16;
   return rnd<B>(__fmul_rn(g, rnd<B>(__fsub_rn(1.f, rnd<B>(__fmul_rn(y, y))))));
+}
+
+// The longest of a cluster's `nrows` (at most 32) lengths, at most `steps`:
+// the steps its loop runs.  Every warp reads them, a row a lane, and takes
+// their maximum itself, so no barrier is needed.  (A loop over the rows in
+// every thread cost the forward 17-21 % of its time on the H100: the
+// compiler laid the step loop's registers out differently.)
+__device__ __forceinline__ int longest(const int* __restrict__ lens, int nrows, int steps) {
+  const int lane = threadIdx.x & 31;
+  return min(__reduce_max_sync(0xffffffffu, lane < nrows ? lens[lane] : 0), steps);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -421,6 +437,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     len[i] = on[i] ? lens[b0 + b] : 0;
     hr[i] = cr[i] = 0.f;
   }
+  const int last = longest(lens + b0, nrows, steps);
   // the input projection of step s at each running pair (the reverse
   // direction's step s reads position len - 1 - s)
   auto prefetch = [&](int s) {
@@ -438,7 +455,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster_arrive();   // every block's buffers are zero before any h arrives
   prefetch(0);
   cluster_wait();
-  for (int s = 0; s < steps; ++s) {
+  for (int s = 0; s < last; ++s) {
     const int cur = s & 1;
     gate_product(w, hbuf + (size_t)cur * RB * ks, gates, nrows, geo);
     __syncthreads();
@@ -475,7 +492,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       hnew[b * U + j] = cvt<T>(hr[i]);
     }
-    if (s + 1 == steps) break;
+    if (s + 1 == last) break;
     __syncthreads();
     // h_t of the block's units into every block's next buffer
     const int chunks = (ur * (int)sizeof(T) + 15) / 16, per = nrows * chunks;
@@ -496,6 +513,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const size_t at = ((size_t)dir * batch + b0 + pb[i]) * H + u0 + pj[i];
     hn[at] = cvt<T>(hr[i]);
     cn[at] = cvt<T>(cr[i]);
+    T* o = out + (size_t)(b0 + pb[i]) * steps * 2 * H + dir * H + u0 + pj[i];
+    for (int s = last; s < steps; ++s) o[(size_t)s * 2 * H] = cvt<T>(0.f);
   }
 }
 
@@ -550,6 +569,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     dh[i] = on[i] && dhn ? ld(dhn + at) : 0.f;
     dc[i] = on[i] && dcn ? ld(dcn + at) : 0.f;
   }
+  const int last = longest(lens + b0, nrows, steps);
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    if (!on[i]) continue;
+    T* dp = dproj + (size_t)(b0 + pb[i]) * steps * 2 * g4 + dir * g4 + u0 + pj[i];
+    for (int s = last; s < steps; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dp[(size_t)s * 2 * g4 + q * H] = cvt<T>(0.f);
+  }
   // what step s of each running pair reads: its gate activations, c_s,
   // c_{s-1} and the output's gradient
   auto prefetch = [&](int s) {
@@ -571,10 +599,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
 
   cluster_arrive();   // every block runs before any part arrives
-  prefetch(steps - 1);
+  if (last) prefetch(last - 1);
   cluster_wait();
-  for (int s = steps - 1; s >= 0; --s) {
-    if (s + 1 < steps) {
+  for (int s = last - 1; s >= 0; --s) {
+    if (s + 1 < last) {
       // dh_s: the K parts of step s + 1's dgates @ w_hh, in rank order
       const float* rv = recv + (size_t)((s + 1) & 1) * K * RB * U;
 #pragma unroll

@@ -18,6 +18,7 @@ the `.npz` that `cli/convert_vgg.py` writes (as `dwcgan_tpu/cli/convert_vgg.py`)
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -66,12 +67,20 @@ class Vgg16Features(nn.Module):
         return F.relu(conv2d(x, conv.weight, conv.bias, padding=1))
 
 
+@functools.lru_cache(maxsize=None)
+def _bgr_mean(device: torch.device) -> torch.Tensor:
+    """BGR_MEAN on `device`, copied there once: a copy from pageable host
+    memory synchronises, so a CUDA graph of the training step cannot hold
+    one."""
+    return torch.tensor(BGR_MEAN, device=device)
+
+
 def vgg_preprocess(images: torch.Tensor) -> torch.Tensor:
     """[-1, 1] RGB NHWC -> BGR in [0, 255] minus the ImageNet means, NCHW
     fp32 (utils.py:207-217)."""
     bgr = images.float().flip(-1)
     bgr = (bgr + 1.0) * 255.0 * 0.5
-    bgr = bgr - torch.tensor(BGR_MEAN, device=images.device)
+    bgr = bgr - _bgr_mean(images.device)
     return bgr.permute(0, 3, 1, 2)
 
 

@@ -746,10 +746,12 @@ def lstm(proj: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
     direction d's gates (i, f, g, o) at d * 4H, the reverse direction's at
     the positions of the forward input (the kernel reads each row's valid
     prefix reversed); w_hh [2, 4H, H] in proj's dtype; lengths int32 [B], each
-    1..steps with one equal to steps (not checked: that would synchronise).
-    Returns (out [B, steps, 2H], zero past each length; h, c [2, B, H]; and
-    with `save` the gate activations [2, steps, B, 4H] and c [2, steps, B,
-    H] of every step for `lstm_bwd`, else None, None)."""
+    1..steps (not checked: that would synchronise).  `steps` is an upper
+    bound: each cluster runs to the longest length among its rows, read on
+    the card, and zeroes its outputs past it.  Returns (out [B, steps, 2H],
+    zero past each length; h, c [2, B, H]; and with `save` the gate
+    activations [2, steps, B, 4H] and c [2, steps, B, H] of every step for
+    `lstm_bwd`, else None, None)."""
     name = "lstm"
     _check_lstm(name, proj, w_hh, lengths)
     b, steps, _ = proj.shape
@@ -768,7 +770,8 @@ def lstm(proj: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
 def lstm_bwd(w_hh: torch.Tensor, lengths: torch.Tensor, acts: torch.Tensor,
              cs: torch.Tensor, d_out=None, d_h=None, d_c=None) -> torch.Tensor:
     """The gradient of `lstm`'s proj, [B, steps, 8H] (zero past each
-    length), from the forward's w_hh, lengths and saved acts and cs, and the
+    length; like `lstm`, each cluster runs to its rows' longest length),
+    from the forward's w_hh, lengths and saved acts and cs, and the
     gradients of its outputs (each None for zero)."""
     name = "lstm_bwd"
     _, steps, b, g4 = acts.shape

@@ -15,8 +15,12 @@ Both directions run as one recurrence at doubled batch: the forward stream
 and the length-reversed stream stacked along the batch axis, one batched
 product per step.  Each sequence runs over its own length: past it the
 carry is frozen and the output is zero, the packed-sequence semantics.  The
-loop stops at the longest length in the batch, which the caller gives on
-the host (on the card it is read back once otherwise).  Parameter names are
+loop stops at the longest length in the batch, read from lengths the
+caller gives on the host (on the card they are read back once otherwise).
+On the kernel route, lengths already on the card (a CUDA graph of the
+training step, where nothing may be read back) are not read: every step of
+the input's width runs, masked throughout, and the recurrence kernels stop
+at their rows' longest length there.  Parameter names are
 `nn.LSTM`'s (`weight_ih_l0`, `weight_hh_l0_reverse`, ...), as in the
 reference model; the bias is `bias_ih + bias_hh` (the JAX LSTM has one).
 Inter-layer dropout draws its mask from the `rng` generator it is given.
@@ -273,18 +277,22 @@ class MaskedBiLSTM(nn.LSTM):
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 rng: Optional[torch.Generator] = None, rows=None):
         """x: [B, T, D] in the compute dtype; lengths: [B] (>= 1), best on
-        the host.  The inter-layer dropout's mask is drawn from `rng` at the
-        full length T (`rows`: this rank's rows of the global batch's).
+        the host (on the kernel route, lengths on x's device run all T
+        steps without a read back; module docstring).  The inter-layer
+        dropout's mask is drawn from `rng` at the full length T (`rows`:
+        this rank's rows of the global batch's).
 
         Returns (outputs [B, T, 2H], zero past each length; final h and c,
         each [num_layers, 2, B, H] with dim 1 the direction: 0 fwd, 1 bwd).
         """
         route = self.kernel_route(x.device)
-        lens_host = lengths.cpu()
-        steps = int(lens_host.max())
-        lmin = int(lens_host.min())
-        lengths = lengths.to(x.device, torch.int32 if route else torch.int64)
         total = x.shape[1]
+        if route and lengths.device == x.device:
+            steps, lmin = total, 0
+        else:
+            lens_host = lengths.cpu()
+            steps, lmin = int(lens_host.max()), int(lens_host.min())
+        lengths = lengths.to(x.device, torch.int32 if route else torch.int64)
         out = x[:, :steps]
         hs, cs = [], []
         for layer in range(self.num_layers):

@@ -32,10 +32,34 @@ G forward), "d_style1" (the non-shared D phase), "gp_alpha".
 Metrics are 0-d tensors on the device (no host sync inside the step),
 except `lr` and `ds_w`, which are Python floats.
 
-Spans (`utils/profiling.py`): `train.step` around either step, holding
-`train.g_forward`, `train.d_update` (with `train.d_backward`, the backward
-and its all-reduce, and `train.adam_d`), `train.g_update` (with
-`train.g_backward` and `train.adam_g`) and `train.ema`.
+On the card the shared step of one process (the nets on a CUDA device, no
+process group: no `axis`, or the one-process `DataAxis` that `cli/train.py`
+passes) runs as CUDA graphs (`StepGraphs`): each key (attention on, R1 on
+this step, the batch's shapes) runs eagerly `WARM_STEPS` times, which
+makes every lazy set-up (cuBLAS and cuDNN handles, Adam's state, the
+kernels' one-time settings), is then captured once and replayed for every
+later step of that key; the host issues a few launches a step instead of
+thousands.  Every step of this path, eager or replayed, computes the same:
+`lr` and `ds_w` are 0-d tensors on the card, filled before each step, Adam
+runs in its capturable form, and the text encoder runs the text's full
+width of steps, its lengths on the card (`MaskedBiLSTM.forward`).
+`state.rng` is registered with each graph, so a replay draws what an eager
+step would from the same generator state.  A graph is dropped when a tensor
+it holds (a parameter, an EMA copy, an optimizer moment or count) or the
+generator is replaced, as a checkpoint restore replaces the optimizer
+state.  The CPU, a process group (data or model parallel) and the
+non-shared step run eagerly as before; so does a step given `draws`.
+`GRAPH_STEPS` counts the path's captures, replays and eager steps, as
+`ops/cuda/kernels.py`'s `LAUNCHES` counts the kernels (a replay adds the
+launches its capture recorded).
+
+Spans (`utils/profiling.py`): `train.step` around either step (count
+`graph`: 1 where the step replayed a graph, 0 where it ran eagerly),
+holding `train.g_forward`, `train.d_update` (with `train.d_backward`, the
+backward and its all-reduce, and `train.adam_d`), `train.g_update` (with
+`train.g_backward` and `train.adam_g`) and `train.ema` on an eager step,
+and `train.capture` (around the capture, whose recording runs those
+phases once) on the step that captures.
 
 Data parallel (`axis`, a `parallel.mesh.DataAxis`): `batch` holds this
 rank's rows of the global batch, every random draw is made at the global
@@ -59,14 +83,18 @@ parameter once and sum the shards' squares over the model group
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import itertools
+from collections import Counter
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from dwcgan_tpu_torch.config import Config
+from dwcgan_tpu_torch.data.pipeline import Batch
 from dwcgan_tpu_torch.losses.gan import (dis_loss, diversity_loss, gen_adv_loss,
                                          gradient_penalty, r1_penalty, recon_l1)
 from dwcgan_tpu_torch.losses.gmm import gmm_emd, gmm_kl
+from dwcgan_tpu_torch.ops.cuda import kernels
 from dwcgan_tpu_torch.parallel.mesh import (DataAxis, all_reduce_grads,
                                             all_reduce_metrics, draw)
 from dwcgan_tpu_torch.parallel.tensor import all_reduce_sum
@@ -82,6 +110,10 @@ GEN_METRIC_KEYS = (
     "loss_gen_cycrecon_x", "loss_kl_x", "loss_kl_trg", "loss_gen_vgg",
     "loss_ds", "ds_w", "grad_gen_norm",
 )
+
+# the graphed step's captures, replays and eager steps in this process
+GRAPH_STEPS = {"capture": 0, "replay": 0, "eager": 0}
+WARM_STEPS = 2       # eager steps of a key before it is captured
 
 
 def _split_outs(outs, k):
@@ -107,17 +139,128 @@ def _global_norm(params) -> torch.Tensor:
     return torch.sqrt(rep.float().square() + whole)
 
 
-def _apply(opt: torch.optim.Adam, lr: float) -> None:
+def _apply(opt: torch.optim.Adam, lr) -> None:
     """One Adam step at `lr`; a parameter without a gradient takes a zero
     one, as every leaf of the JAX tree gets one (its coupled decay still
-    applies)."""
+    applies).  `lr` a float, or a 0-d tensor on the card: Adam then runs in
+    its capturable form (its counts on the card, nothing read back), which a
+    CUDA graph can hold; each count moves to where the form keeps it."""
+    capturable = torch.is_tensor(lr) and lr.is_cuda
     for group in opt.param_groups:
         group["lr"] = lr
+        group["capturable"] = capturable
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            st = opt.state.get(p)
+            if st and st["step"].is_cuda != capturable:
+                st["step"] = st["step"].to(p.device if capturable else "cpu")
     opt.step()
     opt.zero_grad(set_to_none=True)
+
+
+def graphed(cfg: Config, axis: Optional[DataAxis], device) -> bool:
+    """Whether `make_train_step`'s step runs as CUDA graphs: the shared
+    step (`fuse_gd_forward`, `n_critic` 1) of one process (no process
+    group, so no collective: what `all_reduce_grads` observes), its nets on
+    the card."""
+    return (torch.device(device).type == "cuda" and (axis is None or not axis.grouped)
+            and cfg.fuse_gd_forward and cfg.n_critic == 1)
+
+
+class _Graph(NamedTuple):
+    """One captured step: its graph, the fixed buffers it reads the batch
+    from and writes the metrics to, and the kernel launches it holds."""
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Batch
+    outputs: Dict[str, torch.Tensor]
+    launches: Dict[str, int]
+    arith_launches: Dict[str, int]
+
+
+def _held(state: TrainState):
+    """What a captured step holds of `state`: the generator, and where
+    every parameter, buffer and optimizer tensor lies."""
+    nets = (state.gen, state.dis, state.ema_gen, state.ema_dis)
+    ts = [t for m in nets for t in itertools.chain(m.parameters(), m.buffers())]
+    ts += [v for opt in (state.gen_opt, state.dis_opt) for st in opt.state.values()
+           for v in st.values() if torch.is_tensor(v)]
+    return state.rng, [t.data_ptr() for t in ts]
+
+
+class StepGraphs:
+    """The shared step of one process on the card as CUDA graphs, one per
+    key (module docstring).  `body(state, batch, att_on, r1, lr, ds_w,
+    draws)` is the step's device work; it returns the metrics but
+    `lr`."""
+
+    def __init__(self, body, device: torch.device):
+        self.body = body
+        self.device = device
+        self.stream = torch.cuda.Stream(device)   # the eager steps' and captures'
+        self.lr = torch.zeros((), device=device)
+        self.ds_w = torch.zeros((), device=device)
+        self.graphs: Dict[tuple, _Graph] = {}
+        self.warm: Counter = Counter()
+        self.held = None
+
+    def __call__(self, state: TrainState, batch, att_on: bool, r1: bool,
+                 lr: float, ds_w: float, draws: Dict) -> Dict:
+        if self.graphs and _held(state) != self.held:
+            self.graphs.clear()
+            self.warm.clear()
+        key = (att_on, r1) + tuple((tuple(t.shape), t.dtype) for t in batch)
+        graph = self.graphs.get(key)
+        replay = not draws and (graph is not None or self.warm[key] >= WARM_STEPS)
+        self.lr.fill_(lr)
+        self.ds_w.fill_(ds_w)
+        with span("train.step", graph=int(replay)):
+            if not replay:
+                GRAPH_STEPS["eager"] += 1
+                self.warm[key] += not draws
+                txt_len = batch.txt_len.to(self.device, non_blocking=True)
+                return self._on_stream(state, batch._replace(txt_len=txt_len), att_on,
+                                       r1, draws)
+            if graph is None:
+                graph = self.graphs[key] = self._capture(state, batch, att_on, r1)
+            for dst, src in zip(graph.inputs, batch):
+                dst.copy_(src, non_blocking=True)
+            graph.graph.replay()
+            GRAPH_STEPS["replay"] += 1
+            for counts, add in ((kernels.LAUNCHES, graph.launches),
+                                (kernels.ARITH_LAUNCHES, graph.arith_launches)):
+                for k, v in add.items():
+                    counts[k] += v
+            return {k: v.clone() for k, v in graph.outputs.items()}
+
+    def _on_stream(self, state, batch, att_on, r1, draws):
+        """An eager step on the stream the captures use, so that what it
+        sets up lazily is set up for them."""
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            metrics = self.body(state, batch, att_on, r1, self.lr, self.ds_w, draws)
+        main.wait_stream(self.stream)
+        return metrics
+
+    def _capture(self, state, batch, att_on, r1) -> _Graph:
+        """Record one step into a new graph (nothing runs: the caller
+        replays it).  The launches the recording counted move to the
+        graph, which adds them at each replay."""
+        inputs = Batch(*(t.to(self.device, copy=True) for t in batch))
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.rng)
+        before = dict(kernels.LAUNCHES), dict(kernels.ARITH_LAUNCHES)
+        with span("train.capture"):
+            with torch.cuda.graph(graph, stream=self.stream):
+                outputs = self.body(state, inputs, att_on, r1, self.lr, self.ds_w, {})
+        GRAPH_STEPS["capture"] += 1
+        moved = []
+        for counts, old in zip((kernels.LAUNCHES, kernels.ARITH_LAUNCHES), before):
+            moved.append({k: counts[k] - old[k] for k in old if counts[k] != old[k]})
+            counts.update(old)
+        self.held = _held(state)
+        return _Graph(graph, inputs, outputs, *moved)
 
 
 def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
@@ -126,7 +269,9 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
 
     `gen`, `dis`, `gen_opt` and `dis_opt` are the ones `state` holds;
     `vgg_loss_fn`: (x, y) -> scalar perceptual loss, or None (term off);
-    `axis`: the data axis of a data-parallel run (None: one process)."""
+    `axis`: the data axis of a data-parallel run (None: one process).  The
+    shared step also carries `body(state, batch, att_on, r1, lr, ds_w,
+    draws)`, its work on the device (what a graph holds)."""
     if cfg.dis.norm == "bn":
         raise ValueError(
             "dis.norm='bn' is incompatible with the pass-batched step: "
@@ -153,7 +298,7 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
 
     # ---------------- D update ----------------
 
-    def dis_update(state: TrainState, batch, x_fake, x_fake1, lr, draws):
+    def dis_update(state: TrainState, batch, x_fake, x_fake1, lr, draws, r1):
         with span("train.d_update"):
             x_real = batch.image
             n = x_real.shape[0]
@@ -176,7 +321,7 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
                 loss = loss + loss_gp
             metrics["loss_gp"] = loss_gp.detach()
             loss_r1 = zero
-            if cfg.use_r1 and (state.step + 1) % cfg.d_reg_every == 0:
+            if r1:
                 loss_r1 = r1_penalty(src0, x_real) * 5.0   # 10 / 2 (solver.py:349)
                 loss = loss + loss_r1
             metrics["loss_r1"] = loss_r1.detach()
@@ -302,34 +447,58 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
                 _apply(gen_opt, lr)
             return metrics
 
-    def finish(state, d_metrics, g_metrics, lr):
+    def ema(state):
         with span("train.ema"):
             ema_update(state.ema_gen, gen)
             ema_update(state.ema_dis, dis)
+
+    def finish(state, metrics, lr):
         state.step += 1
-        return all_reduce_metrics({**d_metrics, **g_metrics, "lr": lr}, axis)
+        return all_reduce_metrics({**metrics, "lr": lr}, axis)
 
     def labels(batch):
         return batch.src_label * 2.0 - 1.0, batch.trg_label * 2.0 - 1.0
 
+    def r1_now(step):
+        return cfg.use_r1 and (step + 1) % cfg.d_reg_every == 0
+
+    def shared(state: TrainState, batch, att_on, r1, lr, ds_w, draws) -> Dict:
+        """The shared step's work on the device at these scalars (floats,
+        or 0-d tensors on the card): every metric but `lr`."""
+        c_src, c_trg = labels(batch)
+        (x_fake, x_fake1, partial), aux = g_forward(state, batch, att_on, c_src,
+                                                    c_trg, ds_w, draws)
+        d_metrics = dis_update(state, batch, x_fake.detach(), x_fake1.detach(),
+                               lr, draws, r1)
+        g_metrics = g_update(state, batch, x_fake, x_fake1, partial, aux, lr)
+        ema(state)
+        return {**d_metrics, **g_metrics}
+
+    dev = next(gen.parameters()).device
+    graphs = StepGraphs(shared, dev) if graphed(cfg, axis, dev) else None
+
     def train_step_shared(state: TrainState, batch,
                           draws: Optional[Dict] = None) -> Dict:
-        with span("train.step"):
-            draws = draws or {}
-            step = state.step
-            att_on = cfg.gen.use_attention and step >= cfg.attention_warm_iter
-            lr = sched(step)
-            c_src, c_trg = labels(batch)
-            ds_w = max(cfg.ds_w - (step + 1) * 1e-5, 0.0)
-            (x_fake, x_fake1, partial), aux = g_forward(state, batch, att_on, c_src,
-                                                        c_trg, ds_w, draws)
-            d_metrics = dis_update(state, batch, x_fake.detach(), x_fake1.detach(),
-                                   lr, draws)
-            g_metrics = g_update(state, batch, x_fake, x_fake1, partial, aux, lr)
-            return finish(state, d_metrics, g_metrics, lr)
+        draws = draws or {}
+        step = state.step
+        att_on = cfg.gen.use_attention and step >= cfg.attention_warm_iter
+        lr = sched(step)
+        ds_w = max(cfg.ds_w - (step + 1) * 1e-5, 0.0)
+        if graphs is None:
+            with span("train.step", graph=0):
+                metrics = shared(state, batch, att_on, r1_now(step), lr, ds_w, draws)
+                return finish(state, metrics, lr)
+        metrics = graphs(state, batch, att_on, r1_now(step), lr, ds_w, draws)
+        metrics["ds_w"] = ds_w
+        # the groups keep the float, as a checkpoint saves them (Adam read
+        # the graphs' tensor)
+        for opt in (gen_opt, dis_opt):
+            for group in opt.param_groups:
+                group["lr"] = lr
+        return finish(state, metrics, lr)
 
     def train_step(state: TrainState, batch, draws: Optional[Dict] = None) -> Dict:
-        with span("train.step"):
+        with span("train.step", graph=0):
             draws = draws or {}
             step = state.step
             att_on = cfg.gen.use_attention and step >= cfg.attention_warm_iter
@@ -349,7 +518,8 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
                 att_f, att_f1 = chunk(att2, 2)
                 x_fake = blend_attention(xf, att_f, x_real, att_on)
                 x_fake1 = blend_attention(xf1, att_f1, x_real, att_on)
-            d_metrics = dis_update(state, batch, x_fake, x_fake1, lr, draws)
+            d_metrics = dis_update(state, batch, x_fake, x_fake1, lr, draws,
+                                   r1_now(step))
             if (step + 1) % cfg.n_critic == 0:
                 gen_iter = step // cfg.n_critic
                 ds_w = max(cfg.ds_w - (gen_iter + 1) * 1e-5, 0.0)
@@ -359,8 +529,10 @@ def make_train_step(cfg: Config, gen, dis, gen_opt, dis_opt, vgg_loss_fn=None,
             else:
                 g_metrics = {k: torch.zeros((), device=x_real.device)
                              for k in GEN_METRIC_KEYS}
-            return finish(state, d_metrics, g_metrics, lr)
+            ema(state)
+            return finish(state, {**d_metrics, **g_metrics}, lr)
 
     if cfg.fuse_gd_forward and cfg.n_critic == 1:
+        train_step_shared.body = shared
         return train_step_shared
     return train_step

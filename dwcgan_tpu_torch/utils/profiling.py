@@ -26,9 +26,12 @@ The spans of the program:
 
 - `data.next` (count `ready`: batches decoded and waiting when the consumer
   asked), `data.to_device`: `data/pipeline.py`;
-- `train.step` (a root) holding `train.g_forward`, `train.d_update` (with
-  `train.d_backward` and `train.adam_d`), `train.g_update` (with
-  `train.g_backward` and `train.adam_g`) and `train.ema`: `train/step.py`;
+- `train.step` (a root; count `graph`: 1 where the step replayed a CUDA
+  graph, 0 where it ran eagerly) holding, on an eager step,
+  `train.g_forward`, `train.d_update` (with `train.d_backward` and
+  `train.adam_d`), `train.g_update` (with `train.g_backward` and
+  `train.adam_g`) and `train.ema`, and on the step that records a graph
+  `train.capture` around them: `train/step.py`;
 - `gen.encode`, `gen.encode_txt` (count `lstm_kernel`: 1 where the text
   encoder's recurrence runs as the CUDA kernels, 0 where the loop runs),
   `gen.decode`: `models/generator.py`, under whichever span is open;

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from dwcgan_tpu.ops.lstm import MaskedBiLSTM as JaxLSTM
-from dwcgan_tpu_torch.ops.lstm import MaskedBiLSTM
+from dwcgan_tpu_torch.ops.cuda import kernels
+from dwcgan_tpu_torch.ops.lstm import MaskedBiLSTM, recurrence_plain
 
 torch.set_num_threads(1)
 
@@ -100,3 +101,31 @@ def test_fused_bf16_cell_is_not_the_jax_function():
         _, (h, _) = fused(packed)
     h = h.float().numpy().reshape(2, 2, B, HID)
     assert float(np.abs(h - out["bf16"][1]).max()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [[5, 1, 3, 6], [2, 2, 2, 2]])
+def test_steps_at_the_full_width_match_the_host_lengths(monkeypatch, dtype, lengths):
+    """Lengths where the input is, on the kernel route (as the graphed
+    training step holds them on the card; here the kernels' plain versions
+    in their place): no length is read on the host, every step of the
+    width runs, masked throughout, and the outputs, final h and c are
+    bit-identical to the loop's over the longest length read on the host,
+    the outputs zero past each length.  Two layers with the inter-layer
+    dropout on, its mask drawn at the full width either way."""
+    def no_read(*args, **kw):
+        raise AssertionError("the lengths were read on the host")
+    torch.manual_seed(3)
+    m = MaskedBiLSTM(D, HID, 2, dropout=0.3).train()
+    x = torch.randn(B, T, D).to(dtype)
+    lens = torch.tensor(lengths)
+    want = m(x, lens, torch.Generator().manual_seed(1))
+    monkeypatch.setattr(kernels, "lstm", recurrence_plain)
+    monkeypatch.setattr(m, "kernel_route", lambda device: True)
+    monkeypatch.setattr(torch.Tensor, "cpu", no_read)
+    got = m(x, lens, torch.Generator().manual_seed(1))
+    monkeypatch.undo()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+    for b, n in enumerate(lengths):
+        assert not got[0][b, n:].any()

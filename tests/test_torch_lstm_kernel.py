@@ -15,8 +15,9 @@ machine need not have):
 the kernel route against the loop at 1, 16, 32 and 40 rows (two clusters a
 direction), 2 layers, H 300, input 364 (the flagship text encoder), lengths
 up to 40, bf16 and fp32: outputs, final h and c, and the gradients of x,
-w_ih, w_hh and the biases; the kernels against their plain versions; two
-runs bit-equal; the ops dispatched at the served batch's shape; the launch
+w_ih, w_hh and the biases; the kernels against their plain versions; the
+card-side bound on the loop (steps padded past the longest length)
+bit-equal to the steps cut to it; two runs bit-equal; the ops dispatched at the served batch's shape; the launch
 counters and the span's count; the plan's bytes against the kernels'.
 """
 
@@ -285,6 +286,37 @@ def test_kernels_match_their_plain_versions(card, dtype):
                                     *[g.float() for g in grads])
         for a, w, r in zip(got[:3] + (dk,), want[:3] + (dp,), ref[:3] + (dref,)):
             assert _dist(a, r) <= 1.1 * _dist(w, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, longest", [(16, 25), (32, 37), (40, 37)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_card_side_bound_matches_the_longest_length(card, dtype, rows, longest):
+    """proj padded to 82 steps (the flagship text's width, what the graphed
+    training step passes): each cluster stops at its rows' longest length,
+    read on the card, so out, h, c, the saved acts and cs of every running
+    (step, row) and proj's gradient are bit-equal to the call cut to the
+    batch's longest length, and out and the gradient are zero past it.  At
+    40 rows the second cluster's rows end earlier than the first's."""
+    torch.manual_seed(6)
+    width = 82
+    w_hh = (torch.randn(2, 4 * HID, HID, device=card) * 0.08).to(dtype)
+    proj = torch.randn(rows, width, 8 * HID, device=card).to(dtype)
+    lens = torch.tensor(_lengths("mixed", rows, longest).tolist(), dtype=torch.int32,
+                        device=card)
+    d_out = torch.randn(rows, width, 2 * HID, device=card).to(dtype)
+    d_h, d_c = (torch.randn(2, rows, HID, device=card).to(dtype) for _ in range(2))
+    cut = kernels.lstm(proj[:, :longest].contiguous(), w_hh, lens, save=True)
+    pad = kernels.lstm(proj, w_hh, lens, save=True)
+    assert torch.equal(pad[0][:, :longest], cut[0]) and not pad[0][:, longest:].any()
+    assert torch.equal(pad[1], cut[1]) and torch.equal(pad[2], cut[2])
+    running = torch.arange(longest, device=card)[:, None] < lens[None, :]
+    for a, b in zip(pad[3:], cut[3:]):
+        assert torch.equal(a[:, :longest][:, running], b[:, running])
+    dcut = kernels.lstm_bwd(w_hh, lens, cut[3], cut[4],
+                            d_out[:, :longest].contiguous(), d_h, d_c)
+    dpad = kernels.lstm_bwd(w_hh, lens, pad[3], pad[4], d_out, d_h, d_c)
+    assert torch.equal(dpad[:, :longest], dcut) and not dpad[:, longest:].any()
 
 
 @pytest.mark.cuda

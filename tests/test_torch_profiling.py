@@ -174,6 +174,7 @@ def test_a_train_step_records_its_phases(tmp_path, fuse, want):
         assert [s.name for s in spans] == ["data.to_device"] + want
         root = spans[1]
         assert root.parent == 0 and spans[0].root != root.id
+        assert root.counts == {"graph": 0}     # the CPU runs every step eagerly
         assert all(s.root == root.id for s in spans[1:])
         by_id = {s.id: s.name for s in spans}
         for s in spans[2:]:

@@ -60,8 +60,10 @@ from dwcgan_tpu_torch.data.pipeline import synthetic_batch, to_device
 from dwcgan_tpu_torch.interop.jax_params import (flatten_params, jax_vgg_to_state_dict,
                                                  load_jax_dis_params, load_jax_params)
 from dwcgan_tpu_torch.models.vgg import Vgg16Features, make_vgg_loss_fn
+from dwcgan_tpu_torch.parallel.mesh import DataAxis
+from dwcgan_tpu_torch.train.schedules import lr_schedule
 from dwcgan_tpu_torch.train.state import create_train_state as port_create_state
-from dwcgan_tpu_torch.train.step import make_train_step
+from dwcgan_tpu_torch.train.step import GRAPH_STEPS, graphed, make_train_step
 
 torch.set_num_threads(1)
 
@@ -320,3 +322,71 @@ def test_bn_discriminator_is_rejected():
     cfg.dis.norm = "bn"
     with pytest.raises(ValueError, match="bn"):
         make_train_step(cfg, ts.gen, ts.dis, ts.gen_opt, ts.dis_opt)
+
+
+def _cpu_trainer(cfg, seed=5):
+    state = port_create_state(cfg, VOCAB, device="cpu", seed=seed)
+    return state, make_train_step(cfg, state.gen, state.dis, state.gen_opt, state.dis_opt)
+
+
+def _tensors(state):
+    out = {f"{n}.{k}": v for n in ("gen", "dis", "ema_gen", "ema_dis")
+           for k, v in getattr(state, n).state_dict().items()}
+    for n in ("gen_opt", "dis_opt"):
+        for i, st in getattr(state, n).state_dict()["state"].items():
+            out.update({f"{n}.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def test_device_scalars_match_the_float_step():
+    """The shared step with `lr` and `ds_w` as 0-d tensors, as its CUDA
+    graphs hold them (lr in float64, which holds the float exactly; Adam
+    reads it on the host here), on the CPU: two steps, dropout on,
+    bit-equal to the float step: every parameter, EMA copy, Adam moment and
+    count, the generator's state and every metric.  (The graphs also run
+    the text encoder over the text's full width: its outputs are
+    bit-identical, `test_torch_lstm.py`, but a gradient summed over the
+    positions then adds its zeros past the lengths in another order.)"""
+    cfg = load_config(CONFIG)
+    (a, step_a), (b, step_b) = _cpu_trainer(cfg), _cpu_trainer(cfg)
+    sched = lr_schedule(cfg)
+    for i in range(2):
+        batch = to_device(synthetic_batch(BATCH, cfg.image_size, cfg.gen.num_cls,
+                                          cfg.max_text_len, seed=i), "cpu")
+        want = step_a(a, batch)
+        att_on = cfg.gen.use_attention and b.step >= cfg.attention_warm_iter
+        lr = torch.tensor(sched(b.step), dtype=torch.float64)
+        ds_w = torch.tensor(max(cfg.ds_w - (b.step + 1) * 1e-5, 0.0))
+        got = step_b.body(b, batch, att_on, False, lr, ds_w, {})
+        b.step += 1
+        assert got.keys() == want.keys() - {"lr"}
+        for k, v in got.items():
+            assert torch.equal(v, torch.as_tensor(want[k], dtype=v.dtype)), k
+    ta, tb = _tensors(a), _tensors(b)
+    assert ta.keys() == tb.keys()
+    for k in ta:
+        assert torch.equal(ta[k], tb[k]), k
+    assert torch.equal(a.rng.get_state(), b.rng.get_state())
+
+
+@pytest.mark.parametrize("case", ["card", "cpu", "axis", "n_critic_2", "split",
+                                  "cli_axis"])
+def test_only_the_shared_step_of_one_process_on_the_card_is_graphed(case):
+    """The rule, on its observables; and on the CPU every step runs as
+    before: no capture, replay or eager count.  A process group ("axis",
+    even of one rank) runs the collectives and stays eager; the
+    one-process `DataAxis` that `cli/train.py` builds without a group
+    ("cli_axis") is one process, and takes the graphs."""
+    cfg = load_config(CONFIG)
+    cfg.n_critic = 2 if case == "n_critic_2" else 1
+    cfg.fuse_gd_forward = case != "split"
+    axis = {"axis": DataAxis(rank=0, world=1, global_batch=BATCH, grouped=True),
+            "cli_axis": DataAxis.from_config(cfg)}.get(case)
+    assert case != "cli_axis" or (axis.world, axis.grouped) == (1, False)
+    device = "cpu" if case == "cpu" else "cuda"
+    assert graphed(cfg, axis, device) == (case in ("card", "cli_axis"))
+    state, step = _cpu_trainer(cfg)
+    counts = dict(GRAPH_STEPS)
+    batch = synthetic_batch(BATCH, cfg.image_size, cfg.gen.num_cls, cfg.max_text_len, seed=0)
+    step(state, to_device(batch, "cpu"))
+    assert GRAPH_STEPS == counts
