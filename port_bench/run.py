@@ -98,7 +98,9 @@ def execute(run, t_start: float) -> dict:
         tr = rec["trace"]
         # the window's wall, and its busy time as the trace measures it per
         # step or batch (the profiled slice's own wall is slowed by the
-        # profiler): the driver's idle share is `device_idle_share.*`
+        # profiler), capped at the window within `readers.SATURATED_UP_TO`:
+        # the driver's idle share is `device_idle_share.*`, the uncapped
+        # time per unit `device_busy_ms.*`
         device.update(busy_s=readers.window_busy_s(rec), window_s=rec["window_s"])
         breakdown = {"device_ops": tr["device_ops"], "idle_gaps": tr["idle_gaps"]}
     line = core.result(ok, rec["attempted"], rec["failed"], metrics, device, checks, breakdown)

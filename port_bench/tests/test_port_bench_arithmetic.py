@@ -56,6 +56,31 @@ def test_roofline_reader():
     assert readers.window_busy_s(window) == pytest.approx(4.0)
     assert readers.idle_share(window) == pytest.approx(50.0)
     assert readers.idle_share(rec) is None          # no window to hold it against
+    busy_ms = core.load_metric("device_busy_ms.serve").read
+    assert busy_ms(window) == pytest.approx(100.0)
+    assert core.load_metric("device_busy_ms.train").read(window) == busy_ms(window)
+    # saturated: the slice's 0.201 s and 0.2038 s busy per batch against the
+    # window's 0.2 s (the profiler's own cost on the device, within
+    # `SATURATED_UP_TO`): busy is the window, idle 0
+    for per_batch in (0.201, 0.2038):
+        saturated = {**window, "trace": {**rec["trace"], "busy_s": 5 * per_batch}}
+        assert readers.window_busy_s(saturated) == saturated["window_s"]
+        assert readers.idle_share(saturated) == 0.0
+        assert busy_ms(saturated) == pytest.approx(1e3 * per_batch)   # the slice's own
+    # past the tolerance (0.3 s and 0.4 s against 0.2 s: units or operations
+    # miscounted): not capped, so busy exceeds the window
+    for per_batch, idle in ((0.3, -50.0), (0.4, -100.0)):
+        over = {**window, "trace": {**rec["trace"], "busy_s": 5 * per_batch}}
+        assert readers.window_busy_s(over) == pytest.approx(40 * per_batch)
+        assert readers.window_busy_s(over) > over["window_s"]
+        assert readers.idle_share(over) == pytest.approx(idle)
+    # nothing to read: no trace, no device operation; no window to hold it
+    # against, which the slice's own time per unit does not need
+    for bare in ({**window, "trace": None}, {**window, "trace": {**rec["trace"], "busy_s": 0.0}}):
+        assert busy_ms(bare) is None and readers.window_busy_s(bare) is None
+    for no_window in (rec, {**window, "units": 0}):
+        assert readers.window_busy_s(no_window) is None
+        assert busy_ms(no_window) == pytest.approx(100.0)
     # launched another number of times than the site list says: nothing
     names["void ln_fwd_cluster_kernel<bf16>(x)"] = (2 * 5 + 1, 1.0e-3)
     assert readers.norm_roofline(_rec(names, 5, cfg, 32), "serve") is None

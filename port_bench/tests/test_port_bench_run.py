@@ -45,7 +45,21 @@ def test_unknown_workload_fails(tmp_path):
 
 
 @pytest.mark.parametrize("trace", [False, True])
-def test_last_line(tmp_path, trace):
+def test_last_line(tmp_path, monkeypatch, trace):
+    from port_bench.yardstick import readers
+    if trace and not _card():
+        # the CPU runs no device operation: its operators stand in for the
+        # device's, busy for most of the profiled slice (0.6 to 1.03 of the
+        # window's period), which the profiler slows
+        from port_bench.yardstick import trace as tracemod
+        monkeypatch.setattr(tracemod, "DEVICE_CATS", tracemod.DEVICE_CATS + ("cpu_op",))
+    seen = []
+
+    def window_busy_s(rec):
+        seen.append(rec)
+        return window_busy_s.read(rec)
+    window_busy_s.read = readers.window_busy_s
+    monkeypatch.setattr(readers, "window_busy_s", window_busy_s)
     line = runmod.execute(smoke_run("serve", tmp_path, trace=trace), t_start=0.0)
     assert list(line)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
     assert list(line)[-1] == "checks"
@@ -59,7 +73,16 @@ def test_last_line(tmp_path, trace):
         assert m["unit"] == core.load_metric(name).UNIT and m["value"] == m["value"]
     assert set(line["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
     if trace:
-        assert set(line["device"]) >= {"busy_s", "window_s"}
+        # busy is the slice's time per batch times the window's batches,
+        # capped at the window only within the tolerance
+        tr, units = seen[-1]["trace"], seen[-1]["units"]
+        busy, window = line["device"]["busy_s"], line["device"]["window_s"]
+        raw = tr["busy_s"] / tr["units"] * units
+        assert line["metrics"]["device_busy_ms.serve"]["value"] == 1e3 * (tr["busy_s"] / tr["units"])
+        if raw <= window * readers.SATURATED_UP_TO:
+            assert 0 < busy <= window and busy == min(raw, window)
+        else:
+            assert busy == raw > window
         assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
     assert all(set(v) == {"value", "limit"} for v in line["checks"].values())
     json.dumps(line)
